@@ -13,13 +13,20 @@ with a nonzero exit code:
              nvcc for sm_90a (all sources at once); seconds and ptxas usage.
 3. kernels - each CUDA kernel against its plain PyTorch version on the
              card, at every shape the full_feat 608x160 batch-4 loss pass
-             gives it, on coordinates from a synthetic scene's depth map
-             and pose: ``valid`` identical, max abs error under ``valid``
-             (stereo_fwd <= 2e-7, gen_fwd out/S/D <= 1e-6), and the device
-             time of kernel, plain version and ``F.grid_sample`` (the
-             library yardstick), each the median of 25 CUDA-event-timed
-             replays of a CUDA graph of 10 launches (host launch overhead
-             excluded, L2 warm), beside the byte bound at 3.35 TB/s.
+             and train step give it, on coordinates from a synthetic
+             scene's depth map and pose: ``valid`` identical, max abs
+             error under ``valid`` (stereo_fwd <= 2e-7, gen_fwd out/S/D
+             <= 1e-6), stereo_bwd_u (d_u under ``valid``) and
+             stereo_bwd_src (d_src everywhere, driven through the stereo
+             autograd.Function with a source that requires grad) <= 1e-6
+             on a cotangent that is zero outside ``valid``, as the loss
+             makes it; and the device time of kernel, plain version and
+             the library yardstick (``F.grid_sample``; its backward for
+             the grid or the input for K2/K3; forward plus grid backward
+             for K4 with its factors, timed also with the contraction),
+             each the median of 25 CUDA-event-timed replays of a CUDA
+             graph of 10 launches (host launch overhead excluded, L2
+             warm), beside the byte bound at 3.35 TB/s.
 4. slice   - the held-out loss pass (``make_eval_step`` + ``run_validation``,
              what ``cli test`` runs) on full_feat at 608x160, batch 4:
              float32 with TF32 off against the same pass on the CPU (plain
@@ -28,12 +35,28 @@ with a nonzero exit code:
              launches per batch; then the main path: ``cli test`` on the
              default (bfloat16) config, launch counts reset just before and
              read just after, and its ms/batch, frames/s and peak memory.
-5. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
+5. train   - the full_feat 608x160 train step: on the card the warps'
+             outputs carry a grad_fn and the stereo + temporal terms alone
+             send gradient to the finest disparity head and the odometry
+             net; one float32 step (TF32 off, batch 2) on the card against
+             the CPU's from the same weights and batch: loss terms <= 1e-4
+             relative, BatchNorm statistics <= 2e-4 of their largest
+             magnitude, gradients <= 1e-3 relative L2 where the CPU's own
+             gradient is stable (moves <= 1e-5 under 1e-6 image noise),
+             elsewhere, as one vector, <= 4x that spread; then the main
+             path: ``cli train`` on the default (bfloat16) config, launch
+             counts reset just before and read just after (exactly 4
+             stereo_fwd, 4 stereo_bwd_u, 4 gen_fwd_aux, 0 stereo_bwd_src
+             per step), finite losses, and ms/step, frames/s and peak
+             memory over 12 steady steps on pre-made batches.
+6. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
              uint8 batch and pose of its frame pairs; shapes, finiteness
              and latency.
 
 The last three lines are the nvidia-smi line, the ``{"kernels": [...]}``
-summary and ``{"ok": true, "device": {...}}``. Without a GPU the script
+summary (launches from the main path that runs each kernel: ``cli
+train`` for all but plain gen_fwd, which ``cli test`` runs) and
+``{"ok": true, "device": {...}}``. Without a GPU the script
 exits with code 1 and prints no result.
 """
 
@@ -53,8 +76,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH = 4
 K1_TOL = 2e-7
+K2_TOL = 1e-6
+K3_TOL = 1e-6
 K4_TOL = 1e-6
 METRIC_RTOL = 1e-4
+GRAD_RTOL = 1e-3
+STATS_RTOL = 2e-4
 
 
 def emit(obj) -> None:
@@ -180,6 +207,17 @@ def phase_kernels(cfg, dev):
         return F.grid_sample(src, grid, mode="bilinear", padding_mode="border",
                              align_corners=True)
 
+    def lib_sample_bwd(g, src, grid, mask):
+        """grid_sample's backward (bilinear, border, align_corners) for the
+        input (mask (True, False)) or the grid ((False, True))."""
+        return torch.ops.aten.grid_sampler_2d_backward(g, src, grid, 0, 1, True, list(mask))
+
+    def aux_and_contraction(src, u, v, g):
+        """What the train step runs for one general warp: K4 with its
+        factors, then the backward's contraction."""
+        _, s_aux, d_aux = wk.gen_sample_cuda(src, u, v, True)
+        return torch.sum(g * s_aux, dim=1), torch.sum(g * d_aux, dim=1)
+
     for h, w in scale_shapes(cfg):
         depth = scene["depth"][:, None]
         depth = (depth if (h, w) == (H, W) else resize_bilinear_chw(depth, h, w))[:, 0].contiguous()
@@ -211,6 +249,41 @@ def phase_kernels(cfg, dev):
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
         })
 
+        # K2 and K3 on a cotangent that is zero outside `valid`, as the
+        # loss makes it. K3 is driven through the stereo autograd.Function
+        # with a source that requires grad (u does not, so K2 stays out).
+        g = torch.randn(src.shape, device=dev, generator=gen) * valid[:, None]
+        d_u = wk.stereo_bwd_u_cuda(src, g, u)
+        err_u = float(torch.abs(d_u - wk.stereo_bwd_u_plain(src, g, u))[valid].max())
+        src_req = src.clone().requires_grad_(True)
+        wk.StereoSample.apply(src_req, u, dmax).backward(g)
+        err_src = float(torch.abs(src_req.grad - wk.stereo_bwd_src_plain(g, u, dmax)).max())
+        if not (err_u <= K2_TOL and err_src <= K3_TOL):
+            raise AssertionError(f"stereo backward at {(h, w)}: d_u err {err_u} > {K2_TOL} "
+                                 f"or d_src err {err_src} > {K3_TOL}")
+        if not float(src_req.grad.abs().max()) > 0:
+            raise AssertionError(f"stereo_bwd_src at {(h, w)} produced no gradient")
+        nbytes = 4 * (2 * src.numel() + 2 * u.numel())
+        b_ms, b_by = bound_ms(nbytes, 3 * src.numel())
+        rows.append({
+            "kernel": "stereo_bwd_u", "shape": list(src.shape), "dmax": dmax,
+            "max_abs_err": err_u,
+            "ms": device_ms(lambda: wk.stereo_bwd_u_cuda(src, g, u)),
+            "plain_ms": device_ms(lambda: wk.stereo_bwd_u_plain(src, g, u)),
+            "library_ms": device_ms(lambda: lib_sample_bwd(g, src, grid, (False, True))),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        })
+        nbytes = 4 * (2 * g.numel() + u.numel())
+        b_ms, b_by = bound_ms(nbytes, 4 * g.numel())
+        rows.append({
+            "kernel": "stereo_bwd_src", "shape": list(src.shape), "dmax": dmax,
+            "max_abs_err": err_src,
+            "ms": device_ms(lambda: wk.stereo_bwd_src_cuda(g, u, dmax)),
+            "plain_ms": device_ms(lambda: wk.stereo_bwd_src_plain(g, u, dmax)),
+            "library_ms": device_ms(lambda: lib_sample_bwd(g, src, grid, (True, False))),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        })
+
         # K4: the temporal warp (C=3) at the coarse scales, the fused
         # RGB + feature warp (C=3+16) at the finest.
         src = chw(scene["image_s"], h, w)
@@ -230,19 +303,29 @@ def phase_kernels(cfg, dev):
         if not max(errs) <= K4_TOL:
             raise AssertionError(f"gen_fwd at {(h, w)}: max errs {errs} > {K4_TOL}")
         grid = grid_of(u.clamp(0, w - 1), v.clamp(0, h - 1), h, w)
+        g = torch.randn(src.shape, device=dev, generator=gen) * valid[:, None]
         for aux in (False, True):
             nbytes = 4 * ((3 if aux else 1) * src.numel() + src.numel() + 2 * u.numel())
             b_ms, b_by = bound_ms(nbytes, (17 if aux else 9) * src.numel())
-            rows.append({
+            row = {
                 "kernel": "gen_fwd_aux" if aux else "gen_fwd",
                 "shape": list(src.shape), "pad_v": pad_v,
                 "valid_frac": float(valid.float().mean()),
                 "max_abs_err": max(errs[:3]) if aux else max(errs[0], errs[3]),
                 "ms": device_ms(lambda: wk.gen_sample_cuda(src, u, v, aux)),
                 "plain_ms": device_ms(lambda: wk.gen_sample_plain(src, u, v, aux)),
-                "library_ms": None if aux else device_ms(lambda: lib_sample(src, grid)),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            })
+            }
+            if aux:
+                # Yardstick of the train step's general warp: grid_sample
+                # forward plus its grid backward, against K4 with its
+                # factors plus the contraction.
+                row["library_ms"] = device_ms(
+                    lambda: (lib_sample(src, grid), lib_sample_bwd(g, src, grid, (False, True))))
+                row["with_contraction_ms"] = device_ms(lambda: aux_and_contraction(src, u, v, g))
+            else:
+                row["library_ms"] = device_ms(lambda: lib_sample(src, grid))
+            rows.append(row)
     emit({"phase": "kernels", "shapes": rows})
     return rows
 
@@ -253,16 +336,29 @@ def _f32_config(cfg):
     )
 
 
-def _check_counts(cfg, n_batches: int) -> dict:
-    """Launches since the last reset: one of each kernel per scale and batch."""
+KERNELS = ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_aux")
+
+
+def _check_counts(per_call: dict, n_calls: int) -> dict:
+    """Launches since the last reset: ``per_call[k]`` of kernel k per
+    batch or step (one per scale), none of the others."""
     from depthvo_tpu_torch.ops import warp_kernels as wk
 
-    counts = {k: wk.launch_count(k) for k in ("stereo_fwd", "gen_fwd")}
-    n = cfg.model.num_scales * n_batches
-    want = {"stereo_fwd": n, "gen_fwd": n}
+    counts = {k: wk.launch_count(k) for k in KERNELS}
+    want = {k: per_call.get(k, 0) * n_calls for k in KERNELS}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     return counts
+
+
+def _eval_launches(cfg) -> dict:
+    n = cfg.model.num_scales
+    return {"stereo_fwd": n, "gen_fwd": n}
+
+
+def _train_launches(cfg) -> dict:
+    n = cfg.model.num_scales
+    return {"stereo_fwd": n, "stereo_bwd_u": n, "gen_fwd_aux": n}
 
 
 def phase_slice(variant: str, dev):
@@ -297,7 +393,7 @@ def phase_slice(variant: str, dev):
     out["f32_vs_cpu_max_rel"] = max(rel.values())
     wk.reset_launches()
     f32 = loop.run_validation(eval_fn, models, iter(batches), len(batches))
-    out["f32_launches"] = _check_counts(cfg, len(batches))
+    out["f32_launches"] = _check_counts(_eval_launches(cfg), len(batches))
     out["f32_metrics"] = f32
     del models, cpu_models
     torch.backends.cudnn.allow_tf32 = True
@@ -309,7 +405,7 @@ def phase_slice(variant: str, dev):
     wk.reset_launches()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(argv)
-    launches = _check_counts(cfg, 4)
+    launches = _check_counts(_eval_launches(cfg), 4)
     by_shape = {f"{k} {list(shape)}": n for (k, shape), n in sorted(wk.LAUNCHES.items())}
     text = printed.getvalue()
     metrics = json.loads(text[text.index("{"):])
@@ -331,6 +427,182 @@ def phase_slice(variant: str, dev):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
     out["bf16"] = {"ms_per_batch": ms, "frames_per_s": BATCH * 1e3 / ms,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    return launches
+
+
+def _float_batch(batch, noise_seed=None):
+    """uint8 images -> float32 [-1, 1] (the loaders' formula), optionally
+    plus N(0, 1e-6) noise (to measure a step's own float32 spread)."""
+    import numpy as np
+
+    rng = None if noise_seed is None else np.random.default_rng(noise_seed)
+    out = {}
+    for k, v in batch.items():
+        if v.dtype == np.uint8:
+            v = v.astype(np.float32) / 127.5 - 1.0
+            if rng is not None:
+                v = (v + 1e-6 * rng.normal(size=v.shape)).astype(np.float32)
+        out[k] = v
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def phase_train(variant: str, dev):
+    """The train step: its gradients reach the nets through the warps on
+    the card; one float32 step on the card against the same step on the
+    CPU; then the main path, ``cli train`` on the default (bfloat16)
+    config, and its speed."""
+    import torch
+
+    from depthvo_tpu_torch import cli, configs, ops
+    from depthvo_tpu_torch.configs.base import stereo_dmax
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.geometry import se3
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+    from depthvo_tpu_torch.train import loop
+    from depthvo_tpu_torch.train.state import (
+        TrainState, build_models, create_state, init_params, load_params,
+        make_optimizer, param_tree,
+    )
+
+    cfg = getattr(configs, variant)(batch_size=BATCH)
+    out = {"phase": "train", "config": variant, "hw": [cfg.model.height, cfg.model.width]}
+
+    # float32, TF32 off, batch 2. The odometry net's last bias gives the
+    # random net a real motion (0.3 m forward): with the near-zero twist of
+    # random weights every temporal sample sits within ~1e-4 px of a pixel
+    # centre, where the bilinear gradient jumps between one-sided slopes.
+    cfg32 = _f32_config(getattr(configs, variant)(batch_size=2))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_params(cfg32, torch.Generator().manual_seed(0))
+    params["odom"]["Dense_2.bias"] = torch.tensor([2.0, -1.0, -30.0, 0.2, -0.3, 0.1])
+    host = SyntheticScenes(cfg32, seed=cfg32.seed, u8=True, num_scenes=2).fixed_batch(2)
+
+    # (1) The warps' outputs carry a grad_fn on the card, and the stereo
+    # and temporal terms alone send gradient to the finest disparity head
+    # and to the odometry net.
+    models = load_params(build_models(cfg32), params, dev).train()
+    batch = loop.batch_to_device(_float_batch(host), dev)
+    _, metrics = loop.compute_losses(cfg32, models, batch, train=True)
+    (metrics["loss/stereo"] + metrics["loss/temporal"]).backward()
+    head = getattr(models.depth, f"Conv_{cfg32.model.num_scales - 1}").weight.grad
+    odom = [p.grad for p in models.odom.parameters()]
+    if head is None or not float(head.abs().max()) > 0 or not all(
+            g is not None and float(g.abs().max()) > 0 for g in odom):
+        raise AssertionError("no gradient from the stereo/temporal terms to the nets")
+    depth = torch.full((2, 40, 152), 10.0, device=dev, requires_grad=True)
+    img = torch.rand(2, 3, 40, 152, device=dev)
+    K = torch.as_tensor(host["K"], device=dev)
+    fxb = K[:, 0, 0] * cfg32.stereo_baseline / 4
+    warped_s, _ = ops.stereo_warp_chw(img, depth, fxb, dmax=stereo_dmax(cfg32, 152))
+    T = se3.exp(torch.tensor([[0.02, 0.0, -0.3, 0.0, 0.01, 0.0]] * 2, device=dev,
+                             requires_grad=True))
+    warped_g, _ = ops.frozen_warp_chw(img, depth, T, K, pad_v=cfg32.warp_pad_v)
+    if warped_s.grad_fn is None or warped_g.grad_fn is None:
+        raise AssertionError("a warp's output on the card carries no grad_fn")
+    out["grad_fn"] = {"stereo": type(warped_s.grad_fn).__name__,
+                      "general": type(warped_g.grad_fn).__name__,
+                      "finest_head_grad_max": float(head.abs().max()),
+                      "odom_grad_min_max": min(float(g.abs().max()) for g in odom)}
+    del models, metrics, head, odom
+
+    # (2) One step on the card against the same step on the CPU.
+    def one_step(device, b):
+        models = load_params(build_models(cfg32), params, device)
+        state = TrainState(0, models, make_optimizer(cfg32).init(param_tree(models)))
+        state, metrics = loop.make_train_step(cfg32, device)(state, b)
+        grads = {k: p.grad.detach().cpu() for k, p in param_tree(models).items()
+                 if p.grad is not None}
+        stats = {k: v.detach().cpu() for k, v in models.depth.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return {k: float(v) for k, v in metrics.items()}, grads, stats
+
+    t0 = time.perf_counter()
+    gpu_m, gpu_g, gpu_s = one_step(dev, _float_batch(host))
+    cpu_m, cpu_g, cpu_s = one_step(torch.device("cpu"), _float_batch(host))
+    _, own_g, _ = one_step(torch.device("cpu"), _float_batch(host, noise_seed=1))
+    out["card_vs_cpu_seconds"] = time.perf_counter() - t0
+    rel_m = {k: abs(gpu_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-30) for k in cpu_m
+             if k != "grad/global_norm"}
+    if set(gpu_m) != set(cpu_m) or not max(rel_m.values()) <= METRIC_RTOL:
+        raise AssertionError(f"train step card vs CPU metrics: {gpu_m} vs {cpu_m}")
+    if set(gpu_g) != set(cpu_g) or any(k.startswith("feat.") for k in gpu_g):
+        raise AssertionError("card and CPU differ in which parameters got a gradient")
+    stable, unstable = {}, []
+    for k in cpu_g:
+        if _rel(own_g[k], cpu_g[k]) <= 1e-5:
+            stable[k] = _rel(gpu_g[k], cpu_g[k])
+        else:
+            unstable.append(k)
+    if not stable or not max(stable.values()) <= GRAD_RTOL:
+        raise AssertionError(f"stable gradients card vs CPU: max {max(stable.values())}")
+    flat = lambda g, keys: torch.cat([g[k].flatten() for k in keys])  # noqa: E731
+    spread = _rel(flat(own_g, unstable), flat(cpu_g, unstable)) if unstable else 0.0
+    err_u = _rel(flat(gpu_g, unstable), flat(cpu_g, unstable)) if unstable else 0.0
+    if not err_u <= max(GRAD_RTOL, 4 * spread):
+        raise AssertionError(f"unstable gradients card vs CPU: {err_u} > 4 x {spread}")
+    norm_rel = abs(gpu_m["grad/global_norm"] - cpu_m["grad/global_norm"]) / cpu_m["grad/global_norm"]
+    if not norm_rel <= max(GRAD_RTOL, 4 * spread):
+        raise AssertionError(f"grad/global_norm card vs CPU: {norm_rel}")
+    stat_err = max(float((gpu_s[k] - cpu_s[k]).abs().max() / cpu_s[k].abs().max())
+                   for k in cpu_s)
+    if not stat_err <= STATS_RTOL:
+        raise AssertionError(f"BatchNorm statistics card vs CPU: {stat_err}")
+    worst = max(stable, key=stable.get)
+    out["f32_card_vs_cpu"] = {
+        "batch": 2, "metrics_max_rel": max(rel_m.values()), "global_norm_rel": norm_rel,
+        "stable_leaves": len(stable), "stable_max_rel": stable[worst], "stable_worst": worst,
+        "unstable_leaves": len(unstable), "unstable_rel": err_u, "cpu_own_spread": spread,
+        "bn_stats_max_rel": stat_err, "metrics": gpu_m,
+    }
+    torch.backends.cudnn.allow_tf32 = True
+
+    # (3) The main path: `cli train` on the default (bfloat16) config.
+    steps = 3
+    argv = ["train", "--variant", variant, "--steps", str(steps), "--batch-size", str(BATCH),
+            "--device", "cuda", "--log-every", "1"]
+    printed = io.StringIO()
+    wk.reset_launches()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(argv)
+    launches = _check_counts(_train_launches(cfg), steps)
+    lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")]
+    logged = [dict(kv.split("=") for kv in ln.split(": ", 1)[1].split()) for ln in lines]
+    if rc != 0 or len(logged) != steps or not all(
+            math.isfinite(float(v)) for m in logged for v in m.values()):
+        raise AssertionError(f"cli train failed: rc {rc}, {lines}")
+    out["main_path"] = {
+        "argv": argv, "launches": launches,
+        "launches_by_shape": {f"{k} {list(shape)}": n
+                              for (k, shape), n in sorted(wk.LAUNCHES.items())},
+        "losses": [{k: float(m[k]) for k in m if k.startswith(("loss/", "grad/"))}
+                   for m in logged],
+    }
+
+    # (4) Its speed on pre-made batches (host data generation excluded).
+    scenes = SyntheticScenes(cfg, seed=cfg.seed, u8=True)
+    batches = [scenes.batch(BATCH) for _ in range(4)]
+    state = create_state(cfg, dev)
+    step_fn = loop.make_train_step(cfg, dev)
+    for i in range(3):
+        step_fn(state, batches[i % 4])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 12
+    t0 = time.perf_counter()
+    for i in range(n):
+        _, metrics = step_fn(state, batches[i % 4])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    if not math.isfinite(float(metrics["loss/total"])):
+        raise AssertionError("non-finite loss in the timed steps")
+    out["bf16"] = {"ms_per_step": ms, "frames_per_s": BATCH * 1e3 / ms, "steps": n,
                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     emit(out)
     return launches
@@ -384,19 +656,31 @@ def main() -> int:
     phase_build()
     cfg = full_feat(batch_size=BATCH)
     rows = phase_kernels(_f32_config(cfg), dev)
-    launches = phase_slice("full_feat", dev)
+    eval_launches = phase_slice("full_feat", dev)
+    train_launches = phase_train("full_feat", dev)
     phase_serve(dev)
 
     summary = []
-    for kernel, replaces in (("stereo_fwd", "depthvo_tpu/ops/warp_pallas.py:102"),
-                             ("gen_fwd", "depthvo_tpu/ops/warp_pallas.py:523")):
+    pallas = "depthvo_tpu/ops/warp_pallas.py"
+    for kernel, replaces, path in (
+        ("stereo_fwd", f"{pallas}:102", "train"),
+        ("stereo_bwd_u", f"{pallas}:126", "train"),
+        ("stereo_bwd_src", f"{pallas}:148", "train"),
+        ("gen_fwd", f"{pallas}:523", "test"),
+        ("gen_fwd_aux", f"{pallas}:523", "train"),
+    ):
         mine = [r for r in rows if r["kernel"] == kernel]
+        launches = (train_launches if path == "train" else eval_launches)[kernel]
         summary.append({
             "name": kernel, "route": "cuda",
             "source": "depthvo_tpu_torch/ops/csrc/warp.cu", "replaces": replaces,
-            "launches": launches[kernel],
+            # The main path whose run counted the launches (`cli train`
+            # steps or `cli test` batches); stereo_bwd_src is on the
+            # train step's custom VJP but runs only for a source that
+            # needs a gradient, which the main path has not.
+            "path": f"cli {path}", "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            # Per batch of the main path: one launch at each shape.
+            # Per step or batch of the main path: one launch at each shape.
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),

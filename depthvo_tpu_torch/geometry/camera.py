@@ -6,7 +6,8 @@
 * project:      [u', v'] = pi(K X'),  pi([x,y,z]) = [x/z, y/z]
 
 Points are (..., H, W, 3) as in the reference; intrinsics (..., 3, 3).
-All geometry runs in float32, with the 3x3 products written as
+All geometry runs in float32 (float64 inputs stay float64, for
+``gradcheck``), with the 3x3 products written as
 broadcast multiply + sum so that no TF32 setting can reach them (the
 reference pins ``Precision.HIGHEST`` for the same reason: a bf16- or
 TF32-class K^{-1} chain puts 0.1+ px of error into the warp).
@@ -15,6 +16,8 @@ TF32-class K^{-1} chain puts 0.1+ px of error into the warp).
 from __future__ import annotations
 
 import torch
+
+from depthvo_tpu_torch.geometry.se3 import as_real
 
 # Pixels at or behind this depth are flagged invalid instead of dividing.
 MIN_DEPTH = 1e-3
@@ -28,43 +31,44 @@ def scale_intrinsics(K: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     ``(s-1)/2`` offset on top of the plain scaling (see the reference's
     docstring for the derivation).
     """
-    K = torch.as_tensor(K).float()
+    K = as_real(K)
     scale = torch.tensor(
-        [[sx, 1.0, sx], [1.0, sy, sy], [1.0, 1.0, 1.0]], device=K.device
+        [[sx, 1.0, sx], [1.0, sy, sy], [1.0, 1.0, 1.0]], dtype=K.dtype, device=K.device
     )
     shift = torch.tensor(
         [[0.0, 0.0, (sx - 1.0) / 2.0],
          [0.0, 0.0, (sy - 1.0) / 2.0],
          [0.0, 0.0, 0.0]],
-        device=K.device,
+        dtype=K.dtype, device=K.device,
     )
     return K * scale + shift
 
 
-def pixel_grid(height: int, width: int, device=None) -> torch.Tensor:
+def pixel_grid(height: int, width: int, device=None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Homogeneous pixel grid (H, W, 3) of (u, v, 1), centers at integers."""
-    u = torch.arange(width, dtype=torch.float32, device=device)
-    v = torch.arange(height, dtype=torch.float32, device=device)
+    u = torch.arange(width, dtype=dtype, device=device)
+    v = torch.arange(height, dtype=dtype, device=device)
     vv, uu = torch.meshgrid(v, u, indexing="ij")
     return torch.stack([uu, vv, torch.ones_like(uu)], dim=-1)
 
 
 def backproject(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """(..., H, W) or (..., H, W, 1) depth -> (..., H, W, 3) points."""
-    depth = depth.float()
+    depth = as_real(depth)
     if depth.shape[-1] == 1 and depth.ndim >= 3:
         depth = depth[..., 0]
     H, W = depth.shape[-2:]
-    grid = pixel_grid(H, W, device=depth.device)
-    K_inv = torch.linalg.inv(torch.as_tensor(K).float())
+    grid = pixel_grid(H, W, device=depth.device, dtype=depth.dtype)
+    K_inv = torch.linalg.inv(as_real(K))
     rays = (K_inv[..., None, None, :, :] * grid[..., None, :]).sum(-1)
     return rays * depth[..., None]
 
 
 def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """X' = R X + t for points (..., H, W, 3) and T (..., 4, 4)."""
-    points = points.float()
-    T = torch.as_tensor(T).float()
+    points = as_real(points)
+    T = as_real(T)
     R = T[..., None, None, :3, :3]
     t = T[..., None, None, :3, 3]
     return (R * points[..., None, :]).sum(-1) + t
@@ -76,8 +80,8 @@ def project(points: torch.Tensor, K: torch.Tensor):
     ``valid`` is z > MIN_DEPTH; elsewhere the coordinates come from a
     safe divide (finite garbage the caller must mask).
     """
-    K = torch.as_tensor(K).float()
-    proj = (K[..., None, None, :, :] * points.float()[..., None, :]).sum(-1)
+    K = as_real(K)
+    proj = (K[..., None, None, :, :] * as_real(points)[..., None, :]).sum(-1)
     z = proj[..., 2]
     valid = z > MIN_DEPTH
     z_safe = torch.where(valid, z, torch.ones_like(z))

@@ -4,7 +4,8 @@
 Conventions are the reference's: a twist ``xi`` is ``[v, w]``
 (translation first), ``exp(xi)`` is ``[[R, V v], [0, 1]]`` with
 ``R = exp_so3(w)`` and ``V`` the left Jacobian of SO(3). Everything runs
-in float32 and is shape-polymorphic over leading batch dims.
+in float32 (float64 inputs stay float64, so ``torch.autograd.gradcheck``
+can run on it) and is shape-polymorphic over leading batch dims.
 
 Precision: the reference pins ``Precision.HIGHEST`` on its einsums. The
 3x3 products here are written as broadcast multiply + sum, which is full
@@ -22,8 +23,10 @@ import torch
 _EPS = 1e-4  # ||w|| below this uses the Taylor branch (f32-safe)
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.as_tensor(x).float()
+def as_real(x) -> torch.Tensor:
+    """float32, or float64 where the input is float64."""
+    x = torch.as_tensor(x)
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -38,7 +41,7 @@ def _matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def hat(w: torch.Tensor) -> torch.Tensor:
     """so(3) hat operator: (..., 3) -> (..., 3, 3) skew-symmetric matrix."""
-    w = _f32(w)
+    w = as_real(w)
     zeros = torch.zeros_like(w[..., 0])
     row0 = torch.stack([zeros, -w[..., 2], w[..., 1]], dim=-1)
     row1 = torch.stack([w[..., 2], zeros, -w[..., 0]], dim=-1)
@@ -48,7 +51,7 @@ def hat(w: torch.Tensor) -> torch.Tensor:
 
 def vee(W: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`hat`: (..., 3, 3) -> (..., 3)."""
-    W = _f32(W)
+    W = as_real(W)
     return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
@@ -77,12 +80,12 @@ def _t_minus_sin_over_t3(t2: torch.Tensor) -> torch.Tensor:
 
 
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
-    return torch.eye(3, dtype=torch.float32, device=W.device).expand(W.shape)
+    return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
 
 def exp_so3(w: torch.Tensor) -> torch.Tensor:
     """SO(3) exponential map (Rodrigues): (..., 3) -> (..., 3, 3)."""
-    w = _f32(w)
+    w = as_real(w)
     t2 = torch.sum(w * w, dim=-1)
     A = _sin_t_over_t(t2)[..., None, None]
     B = _one_minus_cos_over_t2(t2)[..., None, None]
@@ -92,7 +95,7 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
 
 def left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
     """Left Jacobian V of SO(3): exp(xi) translation is V @ v."""
-    w = _f32(w)
+    w = as_real(w)
     t2 = torch.sum(w * w, dim=-1)
     B = _one_minus_cos_over_t2(t2)[..., None, None]
     C = _t_minus_sin_over_t3(t2)[..., None, None]
@@ -103,21 +106,21 @@ def left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
 def _rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 3, 3) + (..., 3) -> (..., 4, 4) homogeneous matrix."""
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], device=R.device)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
     bottom = bottom.expand(R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
 def exp(xi: torch.Tensor) -> torch.Tensor:
     """SE(3) exponential map: twist (..., 6) [v, w] -> transform (..., 4, 4)."""
-    xi = _f32(xi)
+    xi = as_real(xi)
     v, w = xi[..., :3], xi[..., 3:]
     return _rt_to_mat(exp_so3(w), _matvec(left_jacobian_so3(w), v))
 
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:
     """SO(3) logarithm: (..., 3, 3) -> (..., 3). Valid for angle < pi."""
-    R = _f32(R)
+    R = as_real(R)
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     t = torch.arccos(torch.clip((trace - 1.0) * 0.5, -1.0, 1.0))
     t2 = t * t
@@ -131,7 +134,7 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
 
 def log(T: torch.Tensor) -> torch.Tensor:
     """SE(3) logarithm: (..., 4, 4) -> twist (..., 6) [v, w]."""
-    T = _f32(T)
+    T = as_real(T)
     w = log_so3(T[..., :3, :3])
     V = left_jacobian_so3(w)
     v = torch.linalg.solve(V, T[..., :3, 3:4])[..., 0]
@@ -140,11 +143,11 @@ def log(T: torch.Tensor) -> torch.Tensor:
 
 def compose(T_a: torch.Tensor, T_b: torch.Tensor) -> torch.Tensor:
     """Compose two transforms: returns T_a @ T_b."""
-    return _matmul(_f32(T_a), _f32(T_b))
+    return _matmul(as_real(T_a), as_real(T_b))
 
 
 def inverse(T: torch.Tensor) -> torch.Tensor:
     """Closed-form SE(3) inverse: [[R^T, -R^T t], [0, 1]]."""
-    T = _f32(T)
+    T = as_real(T)
     Rt = T[..., :3, :3].transpose(-1, -2)
     return _rt_to_mat(Rt, -_matvec(Rt, T[..., :3, 3]))

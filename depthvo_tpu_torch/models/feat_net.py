@@ -3,7 +3,8 @@
 
 A stride-1 dilated 3x3 stack (dilations 1, 2, 4), a 3x3 conv to
 ``out_features`` channels, then float32 L2 normalisation over channels
-with ``+1e-8`` inside the square root.
+with ``+1e-8`` inside the square root. It stays in eval mode in every
+stage; its parameters train only with ``train_feat``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,12 @@ class FeatNet(nn.Module):
             in_ch = feats
         self.num_convs = len(conv_features)
         self.Conv_0 = Conv(in_ch, out_features, 3)
+
+    def train(self, mode: bool = True) -> "FeatNet":
+        """Always eval mode: the reference applies the feature net with
+        ``train=False`` in every stage, so ``.train()`` on the networks
+        does not reach it."""
+        return super().train(False)
 
     def forward_chw(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) in [-1, 1] -> (B, out_features, H, W) float32."""

@@ -13,8 +13,9 @@ flax differ, each pinned by a parity test (tests/test_torch_models.py):
   which is asymmetric on stride 2; torch's ``padding=`` is symmetric.
   :func:`same_pads` computes flax's pads from the input size and the
   layers apply them with ``F.pad`` where they are asymmetric.
-* BatchNorm in eval mode: running averages and eps 1e-5. Train mode
-  (flax momentum 0.95) belongs to the training slice.
+* BatchNorm (:class:`BatchNorm`): eps 1e-5; train mode uses flax's
+  momentum 0.95 (torch 0.05) and folds the biased batch variance into
+  the running variance, where torch's own folds the unbiased one.
 * ``resize_bilinear(_chw)`` is ``jax.image.resize(method="linear")``,
   which antialiases when it shrinks: ``F.interpolate(...,
   antialias=True)``. ``upsample2x`` is nearest-neighbour.
@@ -61,6 +62,37 @@ def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2):
     return F.max_pool2d(x, kernel, stride)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.95, epsilon=1e-5)``.
+
+    Eval mode normalises with the running averages. Train mode normalises
+    with the batch mean and the biased batch variance and moves the
+    running averages by 5% towards them (flax momentum 0.95 is torch
+    momentum 0.05). torch folds the UNBIASED variance n/(n-1) var into
+    ``running_var``; flax folds the biased one, so the update is redone
+    here from the previous running variance. The statistics are float32
+    whatever the activations' dtype (cuDNN computes them so under bf16
+    autocast, and the buffers are float32).
+    """
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.05)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # torch's op moves a copy (autograd keeps it, so it is not
+        # touched again): var_u = k prev + m var n/(n-1), k = 1 - m. Then
+        # r var_u + (1 - r) k prev = k prev + m var with r = (n-1)/n.
+        var_u = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var_u, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        r = 1.0 - 1.0 / (x.numel() // x.shape[1])
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - r) * (1.0 - self.momentum)).add_(var_u, alpha=r)
+        return y
+
+
 class ConvBlock(nn.Module):
     """Conv -> (BN) -> activation, the basic unit of every tower. The conv
     has a bias only without BN, as in the reference."""
@@ -71,7 +103,7 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.Conv_0 = Conv(in_ch, features, kernel, stride, dilation,
                            bias=not use_bn)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5) if use_bn else None
+        self.BatchNorm_0 = BatchNorm(features) if use_bn else None
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,12 @@
 ``depthvo_tpu/ops/__init__.py``).
 
 * ``stereo_warp_chw`` - rectified-stereo warp through the ``stereo_fwd``
-  kernel (every scale of the stereo loss).
+  kernel, differentiated by ``stereo_bwd_u`` (and ``stereo_bwd_src`` when
+  the source needs a gradient); every scale of the stereo loss.
 * ``frozen_warp_chw`` - general warp of a constant source through the
-  ``gen_fwd`` kernel (temporal and frozen-feature losses), with the
-  reference's adaptive vertical window.
+  ``gen_fwd`` kernel, differentiated through its gradient factors
+  (temporal and frozen-feature losses), with the reference's adaptive
+  vertical window.
 
 Dispatch is on the tensor's device (``warp_kernels``): CPU tensors take
 the plain PyTorch versions, CUDA tensors the kernels, never both.
@@ -42,7 +44,7 @@ def frozen_warp_chw(src_chw, depth, T, K, pad_v: int | None = None):
     Returns (warped (B,C,H,W), valid (B,H,W)); ``valid`` carries the
     window of :func:`kernel_pad_v`. Where no window fits, ``valid`` is the
     plain warp's, as in the reference, and the sample still runs on the
-    same kernel (it reads any row).
+    same kernel (it reads any row) behind the same gradient boundary.
     """
     H, W = src_chw.shape[2:]
     pad_v = kernel_pad_v(H, pad_v)
@@ -53,5 +55,7 @@ def frozen_warp_chw(src_chw, depth, T, K, pad_v: int | None = None):
     coords, front = geo_warp.warp_coords(depth, T, K)
     u = coords[..., 0].contiguous()
     v = coords[..., 1].contiguous()
-    warped = warp_kernels.gen_sample(src_chw.detach().float().contiguous(), u, v)
+    warped = warp_kernels.FrozenGenSample.apply(
+        src_chw.detach().float().contiguous(), u, v
+    )
     return warped, geo_warp.in_bounds(u, v, H, W) & front

@@ -1,18 +1,33 @@
-"""Warp kernels and their coordinate/mask math (counterpart of
-``depthvo_tpu/ops/warp_pallas.py``).
+"""Warp kernels, their gradient boundaries and their coordinate/mask math
+(counterpart of ``depthvo_tpu/ops/warp_pallas.py``).
 
-Two kernels, each a hand-written CUDA kernel (``csrc/warp.cu``) with a
+Four kernels, each a hand-written CUDA kernel (``csrc/warp.cu``) with a
 plain PyTorch version of the same function beside it:
 
 * ``stereo_fwd`` (replaces ``_stereo_fwd_kernel``): the rectified-stereo
   warp, a horizontal-only bilinear resample of each source row.
+* ``stereo_bwd_u`` (replaces ``_stereo_bwd_u_kernel``): its gradient with
+  respect to the sample column u, d_u = sum_c g * (s1 - s0).
+* ``stereo_bwd_src`` (replaces ``_stereo_bwd_src_kernel``): its gradient
+  with respect to the source, in the scatter-free gather form bounded by
+  the disparity bound ``dmax``.
 * ``gen_fwd`` (replaces ``_gen_fwd_kernel``): the general warp of a
   frozen source, a 2-D bilinear sample, optionally with the gradient
   factors S = d out / d u and D = d out / d v.
 
 Dispatch is on the tensor's device: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, or the call raises. Each
-wrapper counts its launches in :data:`LAUNCHES`.
+wrapper counts its launches in :data:`LAUNCHES` (``gen_fwd`` with the
+gradient factors counts as ``gen_fwd_aux``).
+
+Two ``torch.autograd.Function``s sit where the reference puts its custom
+VJPs, so autograd on either device runs the same backward contract:
+:class:`StereoSample` (``_stereo_sample_chw``: forward K1, backward K2 and,
+when the source needs a gradient, K3) and :class:`FrozenGenSample`
+(``_gen_sample_chw``: forward K4 with its factors, backward
+d_u = sum_c g * S, d_v = sum_c g * D, no source gradient). Gradients go
+to the unclipped coordinates with no clip derivative, as in the
+reference.
 
 The masks follow the reference's kernel path: ``valid`` of the general
 warp includes the TPU kernel's reach (``window_mask``: the 8-row tile
@@ -35,6 +50,7 @@ from depthvo_tpu_torch.ops import _build
 TILE_ROWS = 8  # the reference kernel's row tile; it shapes window_mask
 LANE = 128  # the reference kernel's lane block; |u - col| <= LANE - 1
 GEN_PAD_V = 16  # default vertical half-window (rows, a multiple of 8)
+MAX_BWD_SRC_WIDTH = 4096  # stereo_bwd_src stages 3 W words in 48 KB
 
 # Launches per (kernel name, src shape); only the CUDA wrappers count,
 # where they launch.
@@ -57,6 +73,10 @@ def _kernels() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.depthvo_stereo_fwd.argtypes = [p, p, p, i, i, i, i, p]
     lib.depthvo_stereo_fwd.restype = i
+    lib.depthvo_stereo_bwd_u.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.depthvo_stereo_bwd_u.restype = i
+    lib.depthvo_stereo_bwd_src.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.depthvo_stereo_bwd_src.restype = i
     lib.depthvo_gen_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.depthvo_gen_fwd.restype = i
     return lib
@@ -75,8 +95,26 @@ def _check_cuda(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} has {t.numel()} elements; the kernel takes < 2**31")
 
 
+def _check_src(src: torch.Tensor, name: str = "src"):
+    if src.ndim != 4:
+        raise ValueError(f"{name} must be (B, C, H, W), got {tuple(src.shape)}")
+    return src.shape
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(name: str, fn, *args) -> None:
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def n_shifts(dmax: int | None, W: int) -> int:
+    """Shifts of the scatter-free d_src: ``min(dmax + 2, W)`` (all W
+    without a bound), the range of the reference kernel."""
+    return W if dmax is None else min(dmax + 2, W)
 
 
 # --------------------------------------------------------------------------
@@ -84,37 +122,37 @@ def _stream(device: torch.device) -> int:
 # --------------------------------------------------------------------------
 
 
+def _stereo_taps(u: torch.Tensor, W: int, dtype: torch.dtype):
+    """Clipped u -> (u0, x1 = min(u0+1, W-1), au), as the kernels compute
+    them."""
+    u = u.to(dtype).clamp(0.0, W - 1)
+    u0f = torch.floor(u)
+    x0 = u0f.long().clamp(0, W - 1)
+    return x0, (x0 + 1).clamp(max=W - 1), u - u0f
+
+
 def stereo_sample_plain(src: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Plain version of ``stereo_fwd``: src (B,C,H,W), u (B,H,W) ->
     (1-au) src[..,u0] + au src[..,min(u0+1,W-1)] with u clipped to
-    [0, W-1]. Works on any device."""
+    [0, W-1]. Works on any device and floating dtype."""
     B, C, H, W = src.shape
-    u = u.float().clamp(0.0, W - 1)
-    u0f = torch.floor(u)
-    au = (u - u0f)[:, None]
-    x0 = u0f.long().clamp(0, W - 1)[:, None].expand(B, C, H, W)
-    x1 = (x0 + 1).clamp(max=W - 1)
-    s0 = torch.gather(src, 3, x0)
-    s1 = torch.gather(src, 3, x1)
+    x0, x1, au = _stereo_taps(u, W, src.dtype)
+    s0 = torch.gather(src, 3, x0[:, None].expand(B, C, H, W))
+    s1 = torch.gather(src, 3, x1[:, None].expand(B, C, H, W))
+    au = au[:, None]
     return (1.0 - au) * s0 + au * s1
 
 
 def stereo_sample_cuda(src: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Launch ``stereo_fwd`` (csrc/warp.cu). Raises on anything the kernel
     does not take or when the launch fails; never falls back."""
-    if src.ndim != 4:
-        raise ValueError(f"src must be (B, C, H, W), got {tuple(src.shape)}")
-    B, C, H, W = src.shape
+    B, C, H, W = _check_src(src)
     _check_cuda("src", src, (B, C, H, W), src.device)
     _check_cuda("u", u, (B, H, W), src.device)
     out = torch.empty_like(src)
-    lib = _kernels()
-    err = lib.depthvo_stereo_fwd(
-        src.data_ptr(), u.data_ptr(), out.data_ptr(), B, C, H, W,
-        _stream(src.device),
-    )
-    if err:
-        raise RuntimeError(f"stereo_fwd launch failed with CUDA error {err}")
+    _launch("stereo_fwd", _kernels().depthvo_stereo_fwd,
+            src.data_ptr(), u.data_ptr(), out.data_ptr(), B, C, H, W,
+            _stream(src.device))
     LAUNCHES[("stereo_fwd", (B, C, H, W))] += 1
     return out
 
@@ -124,6 +162,117 @@ def stereo_sample(src: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if src.device.type == "cpu":
         return stereo_sample_plain(src, u)
     return stereo_sample_cuda(src, u)
+
+
+# --------------------------------------------------------------------------
+# K2: stereo backward with respect to u.
+# --------------------------------------------------------------------------
+
+
+def stereo_bwd_u_plain(src: torch.Tensor, g: torch.Tensor,
+                       u: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``stereo_bwd_u``: d_u[b,i,j] = sum_c g[b,c,i,j] *
+    (s1 - s0) with the taps of ``stereo_fwd``, summed in channel order."""
+    B, C, H, W = src.shape
+    x0, x1, _ = _stereo_taps(u, W, src.dtype)
+    s0 = torch.gather(src, 3, x0[:, None].expand(B, C, H, W))
+    s1 = torch.gather(src, 3, x1[:, None].expand(B, C, H, W))
+    prod = g * (s1 - s0)
+    acc = torch.zeros_like(prod[:, 0])
+    for c in range(C):
+        acc = acc + prod[:, c]
+    return acc
+
+
+def stereo_bwd_u_cuda(src: torch.Tensor, g: torch.Tensor,
+                      u: torch.Tensor) -> torch.Tensor:
+    """Launch ``stereo_bwd_u`` (csrc/warp.cu); raises, never falls back."""
+    B, C, H, W = _check_src(src)
+    _check_cuda("src", src, (B, C, H, W), src.device)
+    _check_cuda("g", g, (B, C, H, W), src.device)
+    _check_cuda("u", u, (B, H, W), src.device)
+    d_u = torch.empty_like(u)
+    _launch("stereo_bwd_u", _kernels().depthvo_stereo_bwd_u,
+            src.data_ptr(), g.data_ptr(), u.data_ptr(), d_u.data_ptr(),
+            B, C, H, W, _stream(src.device))
+    LAUNCHES[("stereo_bwd_u", (B, C, H, W))] += 1
+    return d_u
+
+
+def stereo_bwd_u(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """K2 on the tensor's device: plain version on the CPU, kernel on CUDA."""
+    if src.device.type == "cpu":
+        return stereo_bwd_u_plain(src, g, u)
+    return stereo_bwd_u_cuda(src, g, u)
+
+
+# --------------------------------------------------------------------------
+# K3: stereo backward with respect to the source (scatter-free).
+# --------------------------------------------------------------------------
+
+
+def stereo_bwd_src_plain(g: torch.Tensor, u: torch.Tensor,
+                         dmax: int | None) -> torch.Tensor:
+    """Plain version of ``stereo_bwd_src``, the reference's shift form:
+    d_src[b,c,i,x] = sum_{s < n_shifts(dmax, W), x+s < W} g[b,c,i,x+s] * w_s
+    with w_s = (1-au) where u0[x+s] == x and au where u0[x+s] == x-1.
+    Taps of outputs more than ``dmax + 1`` columns right of x drop, as in
+    the reference; the sum runs over s ascending."""
+    B, C, H, W = g.shape
+    x0, _, au = _stereo_taps(u, W, g.dtype)
+    cols = torch.arange(W, device=g.device)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    acc = torch.zeros_like(g)
+    for s in range(n_shifts(dmax, W)):
+        x = cols[: W - s]
+        u0_s, au_s = x0[..., s:], au[..., s:]
+        w = (torch.where(u0_s == x, 1.0 - au_s, zero)
+             + torch.where(u0_s == x - 1, au_s, zero))
+        acc[..., : W - s] = acc[..., : W - s] + g[..., s:] * w[:, None]
+    return acc
+
+
+def stereo_bwd_src_cuda(g: torch.Tensor, u: torch.Tensor,
+                        dmax: int | None) -> torch.Tensor:
+    """Launch ``stereo_bwd_src`` (csrc/warp.cu); raises, never falls back."""
+    B, C, H, W = _check_src(g, "g")
+    _check_cuda("g", g, (B, C, H, W), g.device)
+    _check_cuda("u", u, (B, H, W), g.device)
+    if W > MAX_BWD_SRC_WIDTH:
+        raise ValueError(f"stereo_bwd_src takes W <= {MAX_BWD_SRC_WIDTH}, got {W}")
+    d_src = torch.empty_like(g)
+    _launch("stereo_bwd_src", _kernels().depthvo_stereo_bwd_src,
+            g.data_ptr(), u.data_ptr(), d_src.data_ptr(), B, C, H, W,
+            n_shifts(dmax, W), _stream(g.device))
+    LAUNCHES[("stereo_bwd_src", (B, C, H, W))] += 1
+    return d_src
+
+
+def stereo_bwd_src(g: torch.Tensor, u: torch.Tensor, dmax: int | None) -> torch.Tensor:
+    """K3 on the tensor's device: plain version on the CPU, kernel on CUDA."""
+    if g.device.type == "cpu":
+        return stereo_bwd_src_plain(g, u, dmax)
+    return stereo_bwd_src_cuda(g, u, dmax)
+
+
+class StereoSample(torch.autograd.Function):
+    """``_stereo_sample_chw``'s custom VJP: ``apply(src, u, dmax)``, src
+    (B,C,H,W), u (B,H,W), ``dmax`` not differentiable. Forward K1;
+    backward K2 for u and, only when the source needs a gradient, K3."""
+
+    @staticmethod
+    def forward(ctx, src, u, dmax):
+        ctx.dmax = dmax
+        ctx.save_for_backward(src, u)
+        return stereo_sample(src, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, u = ctx.saved_tensors
+        g = g.contiguous()
+        d_src = stereo_bwd_src(g, u, ctx.dmax) if ctx.needs_input_grad[0] else None
+        d_u = stereo_bwd_u(src, g, u) if ctx.needs_input_grad[1] else None
+        return d_src, d_u, None
 
 
 # --------------------------------------------------------------------------
@@ -138,8 +287,8 @@ def gen_sample_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     the flattened H*W. With ``emit_grad_aux`` also returns
     S = (1-av)(s01-s00) + av(s11-s10) and D = h1 - h0."""
     B, C, H, W = src.shape
-    u = u.float().clamp(0.0, W - 1)
-    v = v.float().clamp(0.0, H - 1)
+    u = u.to(src.dtype).clamp(0.0, W - 1)
+    v = v.to(src.dtype).clamp(0.0, H - 1)
     u0f = torch.floor(u)
     v0f = torch.floor(v)
     au = (u - u0f)[:, None]
@@ -168,25 +317,19 @@ def gen_sample_cuda(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                     emit_grad_aux: bool = False):
     """Launch ``gen_fwd`` (csrc/warp.cu). Raises on anything the kernel
     does not take or when the launch fails; never falls back."""
-    if src.ndim != 4:
-        raise ValueError(f"src must be (B, C, H, W), got {tuple(src.shape)}")
-    B, C, H, W = src.shape
+    B, C, H, W = _check_src(src)
     _check_cuda("src", src, (B, C, H, W), src.device)
     _check_cuda("u", u, (B, H, W), src.device)
     _check_cuda("v", v, (B, H, W), src.device)
     out = torch.empty_like(src)
     s_aux = torch.empty_like(src) if emit_grad_aux else None
     d_aux = torch.empty_like(src) if emit_grad_aux else None
-    lib = _kernels()
-    err = lib.depthvo_gen_fwd(
-        src.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-        s_aux.data_ptr() if emit_grad_aux else None,
-        d_aux.data_ptr() if emit_grad_aux else None,
-        B, C, H, W, _stream(src.device),
-    )
-    if err:
-        raise RuntimeError(f"gen_fwd launch failed with CUDA error {err}")
-    LAUNCHES[("gen_fwd", (B, C, H, W))] += 1
+    _launch("gen_fwd", _kernels().depthvo_gen_fwd,
+            src.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+            s_aux.data_ptr() if emit_grad_aux else None,
+            d_aux.data_ptr() if emit_grad_aux else None,
+            B, C, H, W, _stream(src.device))
+    LAUNCHES[("gen_fwd_aux" if emit_grad_aux else "gen_fwd", (B, C, H, W))] += 1
     return (out, s_aux, d_aux) if emit_grad_aux else out
 
 
@@ -196,6 +339,28 @@ def gen_sample(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if src.device.type == "cpu":
         return gen_sample_plain(src, u, v, emit_grad_aux)
     return gen_sample_cuda(src, u, v, emit_grad_aux)
+
+
+class FrozenGenSample(torch.autograd.Function):
+    """``_gen_sample_chw``'s custom VJP: ``apply(src, u, v)`` with a frozen
+    src (it gets no gradient). The forward is K4, with the gradient
+    factors S, D only when u or v needs a gradient (so the eval path
+    launches plain ``gen_fwd``); the backward contracts them:
+    d_u = sum_c g * S, d_v = sum_c g * D (plain tensor ops, as the
+    reference's backward is plain XLA)."""
+
+    @staticmethod
+    def forward(ctx, src, u, v):
+        if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
+            return gen_sample(src, u, v)
+        out, s_aux, d_aux = gen_sample(src, u, v, emit_grad_aux=True)
+        ctx.save_for_backward(s_aux, d_aux)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        s_aux, d_aux = ctx.saved_tensors
+        return None, torch.sum(g * s_aux, dim=1), torch.sum(g * d_aux, dim=1)
 
 
 # --------------------------------------------------------------------------
@@ -239,11 +404,13 @@ def _gen_warp_prep(depth, T, K, H: int, W: int, pad_v: int):
 
 def general_warp_frozen_src_chw(src_chw: torch.Tensor, depth, T, K,
                                 pad_v: int = GEN_PAD_V):
-    """General inverse warp of a frozen (B,C,H,W) source through K4.
-    Returns (warped (B,C,H,W) float32, valid (B,H,W))."""
+    """General inverse warp of a frozen (B,C,H,W) source through K4
+    (:class:`FrozenGenSample`: gradients reach depth, T and K through
+    (u, v), none reaches the source). Returns (warped (B,C,H,W) float32,
+    valid (B,H,W))."""
     B, C, H, W = src_chw.shape
     u, v, valid = _gen_warp_prep(depth, T, K, H, W, pad_v)
-    warped = gen_sample(src_chw.detach().float().contiguous(), u, v)
+    warped = FrozenGenSample.apply(src_chw.detach().float().contiguous(), u, v)
     return warped, valid
 
 
@@ -271,13 +438,14 @@ def stereo_valid_mask(depth, disparity, u, H: int, W: int, dmax) -> torch.Tensor
 def stereo_warp_chw(src_chw: torch.Tensor, depth: torch.Tensor, fx_baseline,
                     dmax: int = 128):
     """Rectified-stereo inverse warp of a (B,C,H,W) source through
-    ``stereo_fwd``: samples at u = col - fx*b/depth. ``dmax`` is the static
-    disparity bound in pixels (derive it with ``configs.base.stereo_dmax``;
-    ``None`` drops the bound). Returns (warped, valid (B,H,W))."""
+    :class:`StereoSample` (K1; K2 and K3 in the backward): samples at
+    u = col - fx*b/depth. ``dmax`` is the static disparity bound in pixels
+    (derive it with ``configs.base.stereo_dmax``; ``None`` drops the
+    bound). Returns (warped, valid (B,H,W))."""
     B, C, H, W = src_chw.shape
     if depth.ndim == 4:
         depth = depth[..., 0]
     disparity, u = stereo_disparity_u(depth, fx_baseline, W)
     valid = stereo_valid_mask(depth, disparity, u, H, W, dmax)
-    warped = stereo_sample(src_chw.float().contiguous(), u.contiguous())
+    warped = StereoSample.apply(src_chw.float().contiguous(), u.contiguous(), dmax)
     return warped, valid

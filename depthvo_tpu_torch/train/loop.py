@@ -1,13 +1,14 @@
-"""The staged loss graph and the held-out loss pass (counterpart of
-``depthvo_tpu/train/loop.py``: ``compute_losses``, ``make_eval_step``,
-``run_validation``).
+"""The staged loss graph, the train step, the host training loop and the
+held-out loss pass (counterpart of ``depthvo_tpu/train/loop.py``:
+``compute_losses``, ``make_train_step``, ``fit``, ``SolverSignals``,
+``make_eval_step``, ``run_validation``).
 
 Loss graph (full variant; the config's switches select the stage):
 
   disp_pyramid = DepthNet(I_t)                         # multi-scale
   twist        = OdomNet([I_t, I_s]);  T_ts = se3.exp(twist)
   per scale s:
-    stereo:   warp(I_r -> I_t view, depth_s, fx*b)     -> masked L1  (K1)
+    stereo:   warp(I_r -> I_t view, depth_s, fx*b)     -> masked L1  (K1; K2)
     temporal: warp(I_s -> I_t view, depth_s, T_ts)     -> masked L1  (K4, C=3)
     smoothness(disp_s, I_t)
   finest scale only:
@@ -15,13 +16,18 @@ Loss graph (full variant; the config's switches select the stage):
 
 Images are NHWC in [-1, 1] (or raw uint8) at the entry, as in the
 reference; the photometric region runs in the kernels' (B, C, H, W)
-layout. Only the evaluation pass (``train=False``: BatchNorm running
-statistics, no gradients) is ported; the train step comes with the
-training slice.
+layout. In train mode the depth net's BatchNorm uses and updates batch
+statistics, and autograd differentiates the warps through the kernels'
+``autograd.Function``s (``ops/warp_kernels.py``); the sources are data,
+so the stereo backward launches K2 and not K3. The train step is eager:
+one forward, one backward and one solver update per call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import signal
+import time
 from typing import Callable, Dict, Iterator
 
 import numpy as np
@@ -30,12 +36,20 @@ import torch
 from depthvo_tpu_torch import ops
 from depthvo_tpu_torch.configs import base as config_base
 from depthvo_tpu_torch.configs.base import ExperimentConfig
-from depthvo_tpu_torch.geometry import se3
+from depthvo_tpu_torch.geometry import se3, warp as geo_warp
 from depthvo_tpu_torch.geometry.camera import scale_intrinsics
 from depthvo_tpu_torch.losses.photometric import masked_l1_chw, photometric_loss_chw
 from depthvo_tpu_torch.losses.smoothness import smoothness_loss
 from depthvo_tpu_torch.models.layers import resize_bilinear_chw
-from depthvo_tpu_torch.train.state import DTYPES, Models
+from depthvo_tpu_torch.train import optim
+from depthvo_tpu_torch.train.state import (
+    DTYPES,
+    Models,
+    TrainState,
+    create_state,
+    make_optimizer,
+    param_tree,
+)
 from depthvo_tpu_torch.utils.device import resolve_device
 from depthvo_tpu_torch.utils.images import to_unit
 
@@ -46,24 +60,21 @@ def compute_losses(config: ExperimentConfig, models: Models,
 
     Args:
       models: the stage's networks (``train.state.Models``), on the
-        batch's device.
+        batch's device. ``train`` puts them in train mode (BatchNorm batch
+        statistics, running averages updated in place) or eval mode.
       batch: tensors on one device: 'image_t', 'image_r' (if use_stereo),
         'image_s' (if use_temporal) as (B,H,W,3) float in [-1,1] or raw
         uint8; 'K' (B,3,3) at full resolution; optional 'baseline' (B,).
 
-    Returns: (total_loss, metrics dict of scalar tensors).
+    Returns: (total_loss, metrics dict of scalar tensors). Both carry the
+    autograd graph where grad mode is on.
     """
-    if train:
-        raise NotImplementedError(
-            "the train-mode loss graph (BN batch statistics, warp gradients) "
-            "comes with the training slice"
-        )
     if config.use_feature and not config.use_temporal:
         raise ValueError(
             "use_feature requires use_temporal (the feature loss warps "
             "with the predicted pose)"
         )
-    depth_net, odom_net, feat_net = models
+    depth_net, odom_net, feat_net = models.train(train)
     batch = {
         k: to_unit(v) if v.dtype == torch.uint8 else v for k, v in batch.items()
     }
@@ -131,15 +142,26 @@ def compute_losses(config: ExperimentConfig, models: Models,
     # same coordinates, so RGB and features share one 19-channel warp.
     feat_loss = None
     if config.use_temporal and config.use_feature:
-        feat_t_chw = feat_net.forward_chw(image_t.permute(0, 3, 1, 2)).to(loss_dtype)
-        feat_s_chw = feat_net.forward_chw(
-            batch["image_s"].permute(0, 3, 1, 2)
-        ).to(loss_dtype)
+        # The frozen feature net gets no gradient (the reference's
+        # stop_gradient on its parameters): run it without a graph.
+        with contextlib.nullcontext() if config.train_feat else torch.no_grad():
+            feat_t_chw = feat_net.forward_chw(image_t.permute(0, 3, 1, 2)).to(loss_dtype)
+            feat_s_chw = feat_net.forward_chw(
+                batch["image_s"].permute(0, 3, 1, 2)
+            ).to(loss_dtype)
         depth_full = 1.0 / disps[-1][..., 0]
         payload = torch.cat([image_s_chw, feat_s_chw], dim=1)
-        warped, valid = ops.frozen_warp_chw(
-            payload, depth_full, T_ts, K, pad_v=config.warp_pad_v
-        )
+        if config.train_feat:
+            # feat_s carries gradients: the differentiable plain warp
+            # (the reference's XLA gather/scatter path, no window term).
+            warped_hwc, valid = geo_warp.inverse_warp(
+                payload.permute(0, 2, 3, 1), depth_full, T_ts, K
+            )
+            warped = warped_hwc.permute(0, 3, 1, 2)
+        else:
+            warped, valid = ops.frozen_warp_chw(
+                payload, depth_full, T_ts, K, pad_v=config.warp_pad_v
+            )
         temporal_total = temporal_total + photometric_loss_chw(
             warped[:, :3], image_t_chw, valid, config.ssim_weight
         )
@@ -202,3 +224,169 @@ def run_validation(eval_fn, models: Models, eval_iter: Iterator[Dict[str, np.nda
         for k, v in metrics.items():
             totals[k] = totals.get(k, 0.0) + float(v)
     return {f"val/{k}": v / max(eval_steps, 1) for k, v in totals.items()}
+
+
+def make_train_step(config: ExperimentConfig, device: str | torch.device | None = None
+                    ) -> Callable[[TrainState, Dict[str, np.ndarray]], tuple]:
+    """The train step: ``step_fn(state, host_batch) -> (state, metrics)``.
+
+    One eager forward in train mode, one backward, then the solver update
+    of :func:`train.state.make_optimizer` applied in place; ``state`` is
+    updated in place and returned. ``metrics`` are the loss terms of
+    :func:`compute_losses` (detached, on the device) plus
+    ``grad/global_norm``, the norm of every parameter's gradient (frozen
+    ones count as zero) before clipping. Runs on ``device`` (default
+    ``cuda``; raises when there is no GPU unless ``device="cpu"``).
+    """
+    dev = resolve_device(device)
+    tx = make_optimizer(config)
+
+    def step_fn(state: TrainState, batch: Dict[str, np.ndarray]):
+        params = param_tree(state.models)
+        for p in params.values():
+            p.grad = None
+        total, metrics = compute_losses(
+            config, state.models, batch_to_device(batch, dev), train=True
+        )
+        total.backward()
+        with torch.no_grad():
+            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                     for k, p in params.items()}
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["grad/global_norm"] = optim.global_norm(grads)
+            updates, state.opt_state = tx.update(grads, state.opt_state, params)
+            optim.apply_updates(params, updates)
+        state.step += 1
+        return state, metrics
+
+    return step_fn
+
+
+class SolverSignals:
+    """Caffe ``SignalHandler`` analog (``caffe train --sigint_effect`` /
+    ``--sighup_effect``; the port's copy of the reference's class).
+
+    Maps SIGINT/SIGHUP to a solver action checked once per step:
+    ``"stop"`` finishes the current step and returns from :func:`fit`
+    cleanly; ``"snapshot"`` asks for a checkpoint and keeps training;
+    ``"none"`` leaves the OS default (SIGINT raises KeyboardInterrupt,
+    SIGHUP kills). Stop outranks a pending snapshot. Use as a context
+    manager: previous handlers are restored on exit. Installation is
+    skipped off the main thread, where CPython forbids ``signal.signal``.
+    """
+
+    _EFFECTS = ("stop", "snapshot", "none")
+
+    def __init__(self, sigint: str = "none", sighup: str = "none"):
+        for name, eff in (("sigint", sigint), ("sighup", sighup)):
+            if eff not in self._EFFECTS:
+                raise ValueError(f"{name}_effect {eff!r} not in {self._EFFECTS}")
+        self._effects = {}
+        if sigint != "none":
+            self._effects[signal.SIGINT] = sigint
+        if sighup != "none" and hasattr(signal, "SIGHUP"):
+            self._effects[signal.SIGHUP] = sighup
+        self._prev = {}
+        self._pending: str | None = None
+
+    def _handle(self, signum, frame):
+        if self._pending != "stop":  # stop outranks snapshot
+            self._pending = self._effects[signum]
+
+    def __enter__(self):
+        for signum in self._effects:
+            try:
+                self._prev[signum] = signal.signal(signum, self._handle)
+            except ValueError:  # not the main thread
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        for signum, prev in self._prev.items():
+            signal.signal(signum, prev)
+        self._prev.clear()
+        return False
+
+    def pending(self) -> str | None:
+        """Return and clear the requested action ('stop'/'snapshot'/None)."""
+        action, self._pending = self._pending, None
+        return action
+
+
+def fit(
+    config: ExperimentConfig,
+    data_iter: Iterator[Dict[str, np.ndarray]],
+    num_steps: int,
+    device: str | torch.device | None = None,
+    log_fn: Callable[[int, Dict[str, float]], None] | None = None,
+    state: TrainState | None = None,
+    steps_per_call: int = 1,
+    eval_iter: Iterator[Dict[str, np.ndarray]] | None = None,
+    eval_every: int = 0,
+    eval_steps: int = 10,
+    sigint_effect: str = "none",
+    sighup_effect: str = "none",
+) -> TrainState:
+    """Host training loop, the rebuild of ``Solver::Solve``.
+
+    Runs :func:`make_train_step` on host batches from ``data_iter`` until
+    ``state.step == num_steps`` (a fresh state from ``config.seed`` when
+    ``state`` is None), and calls ``log_fn(step, metrics)`` with the
+    separate loss terms and ``steps_per_sec`` (from the second step on,
+    so the first step's start-up stays out) every ``config.log_every``
+    steps and after the last. ``eval_iter`` + ``eval_every`` run the
+    Caffe solver test phase: every ``eval_every`` steps and after the
+    last, the eval-mode loss terms averaged over ``eval_steps`` batches,
+    logged under ``val/``. ``sigint_effect`` / ``sighup_effect`` are
+    :class:`SolverSignals`' actions.
+
+    Not ported yet: checkpoints (``checkpoint_dir``, ``init_from``,
+    ``init_feat_from``; ROADMAP A.7) and several steps per call
+    (``steps_per_call > 1``); they raise ``NotImplementedError``.
+    """
+    if steps_per_call != 1:
+        raise NotImplementedError("steps_per_call > 1 is not ported yet")
+    if config.init_from or config.init_feat_from:
+        raise NotImplementedError(
+            "init_from / init_feat_from need checkpoints, not ported yet"
+        )
+    dev = resolve_device(device)
+    if state is None:
+        state = create_state(config, dev)
+    step_fn = make_train_step(config, dev)
+    eval_fn = None
+    if eval_iter is not None and eval_every > 0:
+        eval_fn = make_eval_step(config, dev)
+
+    steady_t0 = None
+    steady_base = state.step
+    signals = SolverSignals(sigint=sigint_effect, sighup=sighup_effect)
+    with signals:
+        while state.step < num_steps:
+            action = signals.pending()
+            if action is not None:
+                # Both actions ask for a snapshot; say that none is taken.
+                print(f"signal {action}: checkpoints are not ported; "
+                      "nothing snapshotted", flush=True)
+                if log_fn is not None:
+                    log_fn(state.step - 1, {f"signal/{action}": 1.0})
+                if action == "stop":
+                    break
+            state, metrics = step_fn(state, next(data_iter))
+            i = state.step
+            if steady_t0 is None:
+                float(metrics["loss/total"])  # waits for the first step
+                steady_t0 = time.perf_counter()
+                steady_base = i
+            last = i - 1
+            if log_fn is not None and (last % config.log_every == 0 or i >= num_steps):
+                logged = {k: float(v) for k, v in metrics.items()}
+                logged["steps_per_sec"] = (i - steady_base) / max(
+                    time.perf_counter() - steady_t0, 1e-9
+                )
+                log_fn(last, logged)
+            if eval_fn is not None and (i % eval_every == 0 or i >= num_steps):
+                val = run_validation(eval_fn, state.models, eval_iter, eval_steps)
+                if log_fn is not None:
+                    log_fn(last, val)
+    return state

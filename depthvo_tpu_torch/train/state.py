@@ -1,4 +1,5 @@
-"""The three networks and their initial parameters (counterpart of
+"""The three networks, their initial parameters, the learning-rate
+schedule, the solver chain and the train state (counterpart of
 ``depthvo_tpu/train/state.py``).
 
 The reference keeps parameters in a pytree beside stateless flax
@@ -6,18 +7,23 @@ modules; here the modules hold them. ``params`` below are the port's
 state dicts, one per network: ``{"depth": ..., "odom": ..., "feat": ...}``
 with only the networks the stage uses (the stereo stage has no odometry
 or feature net, as in the reference's ``create_state``). The optimizer
-state and ``create_state`` come with the training slice.
+sees the parameters as one flat dict ``{"depth.<name>": tensor, ...}``
+(:func:`param_tree`); the BatchNorm statistics are the depth net's
+buffers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from depthvo_tpu_torch.configs.base import ExperimentConfig
 from depthvo_tpu_torch.models import DepthNet, FeatNet, OdomNet
+from depthvo_tpu_torch.train import optim
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -30,6 +36,14 @@ class Models(NamedTuple):
     depth: DepthNet
     odom: Optional[OdomNet]
     feat: Optional[FeatNet]
+
+    def train(self, mode: bool = True) -> "Models":
+        """Train or eval mode for the stage's networks (the feature net
+        stays in eval mode, see ``FeatNet.train``)."""
+        for net in self:
+            if net is not None:
+                net.train(mode)
+        return self
 
 
 def compute_dtype(config: ExperimentConfig) -> torch.dtype:
@@ -112,3 +126,142 @@ def load_params(models: Models, params: Dict[str, Dict[str, torch.Tensor]],
         net.load_state_dict(params[name], strict=True)
         net.to(device)
     return models
+
+
+# --------------------------------------------------------------------------
+# Learning-rate schedule and the solver chain.
+# --------------------------------------------------------------------------
+
+
+def lr_schedule(oc) -> Callable[[int], float]:
+    """The Caffe ``lr_policy`` family (``solver.cpp::GetLearningRate``) as
+    a function of the optimizer-update count, evaluated in float32 as the
+    reference's jnp expressions are. ``stepsize`` = ``lr_decay_steps``,
+    ``gamma`` = ``lr_decay_factor``, ``power`` = ``lr_power``,
+    ``max_iter`` = ``total_steps``."""
+    f32 = np.float32
+    base = f32(oc.learning_rate)
+    gamma = f32(oc.lr_decay_factor)
+    power = f32(oc.lr_power)
+    stepsize = max(1, oc.lr_decay_steps)
+    max_iter = max(1, oc.total_steps)
+    policy = oc.lr_policy
+
+    if policy == "fixed":
+        return lambda i: float(base)
+    if policy == "step":
+        return lambda i: float(base * gamma ** np.floor(f32(i) / f32(stepsize)))
+    if policy == "exp":
+        return lambda i: float(base * gamma ** f32(i))
+    if policy == "inv":
+        return lambda i: float(base * (f32(1.0) + gamma * f32(i)) ** -power)
+    if policy == "multistep":
+        values = tuple(int(v) for v in oc.lr_step_values)
+        if not values:
+            raise ValueError("lr_policy='multistep' needs non-empty lr_step_values")
+        return lambda i: float(base * gamma ** f32(sum(i >= v for v in values)))
+    if policy == "poly":
+        return lambda i: float(
+            base * max(f32(0.0), f32(1.0) - f32(i) / f32(max_iter)) ** power
+        )
+    if policy == "sigmoid":
+        return lambda i: float(
+            base / (f32(1.0) + np.exp(-gamma * f32(i - stepsize)))
+        )
+    raise ValueError(
+        f"unknown lr_policy {policy!r} (expected fixed/step/exp/inv/"
+        f"multistep/poly/sigmoid)"
+    )
+
+
+def warmup_schedule(oc) -> Callable[[int], float]:
+    """``optax.join_schedules([linear 0 -> lr over warmup_steps, decay],
+    [warmup_steps])``: update 0 gets lr 0, and the decay policy counts
+    from the end of the warmup. No warmup: the decay policy alone."""
+    decay = lr_schedule(oc)
+    warmup = oc.warmup_steps
+    if warmup <= 0:
+        return decay
+    lr = np.float32(oc.learning_rate)
+
+    def schedule(i: int) -> float:
+        if i >= warmup:
+            return decay(i - warmup)
+        frac = np.float32(1.0) - np.float32(i) / np.float32(warmup)
+        return float(-lr * frac + lr)
+
+    return schedule
+
+
+OPTIMIZERS = ("adam", "sgd", "nesterov", "adagrad", "rmsprop", "adadelta")
+
+
+def make_optimizer(config: ExperimentConfig) -> optim.Transform:
+    """The reference's chain: clip_by_global_norm, then the solver with
+    the warmed-up schedule (adam as adamw with decoupled decay; the
+    others with Caffe's L2 added first), with the feature net frozen
+    unless ``train_feat`` and, for ``iter_size > 1``, gradient averaging
+    over micro-batches (``optax.MultiSteps``)."""
+    oc = config.optim
+    schedule = warmup_schedule(oc)
+    l2 = [optim.add_decayed_weights(oc.weight_decay)] if oc.weight_decay > 0.0 else []
+    lr = optim.scale_by_learning_rate(schedule)
+    if oc.optimizer == "adam":
+        base = [optim.scale_by_adam(oc.beta1, oc.beta2, oc.delta), *l2, lr]
+    elif oc.optimizer in ("sgd", "nesterov"):
+        base = [*l2, optim.trace(oc.beta1, nesterov=oc.optimizer == "nesterov"), lr]
+    elif oc.optimizer == "adagrad":
+        base = [*l2, optim.scale_by_rss(0.1, oc.delta), lr]
+    elif oc.optimizer == "rmsprop":
+        base = [*l2, optim.scale_by_rms(oc.rms_decay, oc.delta), lr]
+    elif oc.optimizer == "adadelta":
+        base = [*l2, optim.scale_by_adadelta(oc.beta1, oc.delta), lr]
+    else:
+        raise ValueError(
+            f"unknown optimizer {oc.optimizer!r} (expected {'/'.join(OPTIMIZERS)})"
+        )
+    tx = optim.chain(optim.clip_by_global_norm(oc.grad_clip_norm), *base)
+    tx = optim.masked(
+        tx, lambda key: config.train_feat or not key.startswith("feat.")
+    )
+    if oc.iter_size > 1:
+        tx = optim.multi_steps(tx, oc.iter_size)
+    return tx
+
+
+# --------------------------------------------------------------------------
+# Train state.
+# --------------------------------------------------------------------------
+
+
+def param_tree(models: Models) -> Dict[str, nn.Parameter]:
+    """Every parameter of the stage's networks, ``"<net>.<name>"`` ->
+    the live parameter, in a fixed order."""
+    return {
+        f"{name}.{k}": p
+        for name, net in zip(Models._fields, models) if net is not None
+        for k, p in net.named_parameters()
+    }
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The networks (parameters and BatchNorm statistics), the solver's
+    state and the count of train steps (micro-batches) taken."""
+
+    step: int
+    models: Models
+    opt_state: Any
+
+
+def create_state(config: ExperimentConfig, device: torch.device,
+                 generator: torch.Generator | None = None,
+                 tx: optim.Transform | None = None) -> TrainState:
+    """Initial parameters of the stage's networks (drawn from
+    ``generator``, default seeded with ``config.seed``) on ``device``,
+    in train mode, with a fresh solver state."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(config.seed)
+    models = load_params(build_models(config), init_params(config, generator), device)
+    tx = make_optimizer(config) if tx is None else tx
+    return TrainState(0, models.train(), tx.init(param_tree(models)))

@@ -1,16 +1,20 @@
-"""Where the held-out loss pass spends its time on the GPU (the eval-pass
-part of ``depthvo_tpu/utils/profiling.py``'s role).
+"""Where the train step and the held-out loss pass spend their time on
+the GPU (the device-breakdown part of ``depthvo_tpu/utils/profiling.py``'s
+role).
 
-    python -m depthvo_tpu_torch.utils.profiling --variant full_feat --batches 5
+    python -m depthvo_tpu_torch.utils.profiling --mode train --variant full_feat --batches 5
+    python -m depthvo_tpu_torch.utils.profiling --mode eval --variant full_feat --batches 5
 
-runs ``make_eval_step`` on synthetic uint8 batches (random weights from
-``--seed``), warms up, then traces ``--batches`` batches with
-``torch.profiler`` and prints one JSON line: host wall time per batch
-(traced, so with the profiler's overhead), device kernel time per batch
-and the busy share of the wall time, kernel launches per batch, the
-device time by category (the two warp kernels, convolutions, matrix
-products, copies, the rest) and the kernels that take the most device
-time. It needs a GPU.
+runs ``make_train_step`` (``--mode train``) or ``make_eval_step``
+(``--mode eval``) on synthetic uint8 batches (random weights from
+``--seed``), warms up, then traces ``--batches`` steps with
+``torch.profiler`` and prints one JSON line: host wall time per step
+(traced, so with the profiler's overhead), device kernel time per step
+and the busy share of the wall time, kernel launches per step (all
+kernels, and the warp kernels' own counters), the device time by
+category (the warp kernels, convolutions, matrix products, copies, the
+rest), each warp kernel's device time, and the kernels that take the
+most device time. It needs a GPU.
 """
 
 from __future__ import annotations
@@ -24,11 +28,14 @@ import torch
 
 from depthvo_tpu_torch import configs
 from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+from depthvo_tpu_torch.ops import warp_kernels
 from depthvo_tpu_torch.train import loop
-from depthvo_tpu_torch.train.state import build_models, init_params, load_params
+from depthvo_tpu_torch.train.state import build_models, create_state, init_params, load_params
 
+WARP_KERNELS = ("stereo_fwd_kernel", "stereo_bwd_u_kernel", "stereo_bwd_src_kernel",
+                "gen_fwd_kernel")
 _CATEGORIES = (
-    ("warp_kernels", ("stereo_fwd_kernel", "gen_fwd_kernel")),
+    ("warp_kernels", WARP_KERNELS),
     ("memcpy", ("memcpy",)),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop")),
     ("matmul", ("gemm", "cutlass", "cublas")),
@@ -56,31 +63,29 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_eval(variant: str, batches: int = 5, batch_size: int = 4,
-                 seed: int = 0, top_kernels: int = 15) -> Dict:
-    """Trace ``batches`` batches of the eval pass on the GPU."""
+def _trace(run_step, data, top_kernels: int) -> Dict:
+    """Warm up on two batches, then trace one ``run_step(batch)`` per batch
+    of ``data`` and sum the device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_eval measures the GPU; no CUDA device is available")
-    dev = torch.device("cuda")
-    cfg = getattr(configs, variant)(batch_size=batch_size)
-    models = load_params(build_models(cfg),
-                         init_params(cfg, torch.Generator().manual_seed(seed)), dev)
-    scenes = SyntheticScenes(cfg, seed=cfg.seed + 1_000_003, u8=True)
-    data = [scenes.batch(batch_size) for _ in range(batches)]
-    eval_fn = loop.make_eval_step(cfg, device=dev)
-    loop.run_validation(eval_fn, models, iter(data[:2]), 2)
+    for batch in data[:2]:
+        run_step(batch)
     torch.cuda.synchronize()
+    warp_kernels.reset_launches()
+    n = len(data)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.run_validation(eval_fn, models, iter(data), batches)
+        for batch in data:
+            run_step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    launches = {k: warp_kernels.launch_count(k) / n for k in
+                ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_aux")}
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_cat: Dict[str, float] = {}
     by_name: Dict[str, list] = {}
+    by_warp = {k: 0.0 for k in WARP_KERNELS}
     for e in kernels:
         us = e.time_range.elapsed_us()
         cat = category(e.name)
@@ -88,37 +93,72 @@ def profile_eval(variant: str, batches: int = 5, batch_size: int = 4,
         tot = by_name.setdefault(e.name[:100], [0.0, 0])
         tot[0] += us
         tot[1] += 1
+        for k in WARP_KERNELS:
+            if k in e.name:
+                by_warp[k] += us
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_kernels]
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     return {
-        "variant": variant, "batch": batch_size, "batches": batches,
-        "compute_dtype": cfg.model.compute_dtype,
         "device": torch.cuda.get_device_name(0),
-        "wall_ms_per_batch_traced": wall_us / batches / 1e3,
-        "device_busy_ms_per_batch": busy / batches / 1e3,
+        "wall_ms_per_step_traced": wall_us / n / 1e3,
+        "device_busy_ms_per_step": busy / n / 1e3,
         "device_busy_share": busy / wall_us,
-        "kernels_per_batch": len(kernels) / batches,
-        "device_ms_per_batch_by_category": {
-            k: v / batches / 1e3 for k, v in sorted(by_cat.items())
+        "kernels_per_step": len(kernels) / n,
+        "warp_launches_per_step": launches,
+        "device_ms_per_step_by_category": {
+            k: v / n / 1e3 for k, v in sorted(by_cat.items())
         },
+        "warp_kernel_ms_per_step": {k: v / n / 1e3 for k, v in by_warp.items()},
         "top_kernels": [
-            {"name": n, "category": category(n), "ms_per_batch": us / batches / 1e3,
-             "launches_per_batch": c / batches}
-            for n, (us, c) in top
+            {"name": name, "category": category(name), "ms_per_step": us / n / 1e3,
+             "launches_per_step": c / n}
+            for name, (us, c) in top
         ],
     }
 
 
+def profile(mode: str, variant: str, batches: int = 5, batch_size: int = 4,
+            seed: int = 0, top_kernels: int = 15) -> Dict:
+    """Trace ``batches`` train steps (``mode="train"``) or held-out loss
+    passes (``mode="eval"``) on the GPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile measures the GPU; no CUDA device is available")
+    dev = torch.device("cuda")
+    cfg = getattr(configs, variant)(batch_size=batch_size, seed=seed)
+    scenes = SyntheticScenes(cfg, seed=cfg.seed + 1_000_003, u8=True)
+    data = [scenes.batch(batch_size) for _ in range(batches)]
+    if mode == "train":
+        state = create_state(cfg, dev)
+        step_fn = loop.make_train_step(cfg, device=dev)
+
+        def run_step(batch):
+            step_fn(state, batch)
+    elif mode == "eval":
+        models = load_params(build_models(cfg),
+                             init_params(cfg, torch.Generator().manual_seed(seed)), dev)
+        eval_fn = loop.make_eval_step(cfg, device=dev)
+
+        def run_step(batch):
+            eval_fn(models, batch)
+    else:
+        raise ValueError(f"mode must be 'train' or 'eval', got {mode!r}")
+    out = {"mode": mode, "variant": variant, "batch": batch_size, "steps": batches,
+           "compute_dtype": cfg.model.compute_dtype}
+    out.update(_trace(run_step, data, top_kernels))
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="depthvo_tpu_torch.utils.profiling")
+    p.add_argument("--mode", default="train", choices=["train", "eval"])
     p.add_argument("--variant", default="full_feat",
                    choices=["stereo", "temporal_stereo", "full_feat", "tiny_test"])
     p.add_argument("--batches", type=int, default=5)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    print(json.dumps(profile_eval(args.variant, args.batches, args.batch_size,
-                                  args.seed)))
+    print(json.dumps(profile(args.mode, args.variant, args.batches, args.batch_size,
+                             args.seed)))
     return 0
 
 

@@ -102,3 +102,60 @@ def test_bilinear_sample_matches_jax_off_grid(rng):
     s, ib = twarp.bilinear_sample(torch.from_numpy(img), torch.from_numpy(coords))
     assert np.array_equal(ib.numpy(), np.asarray(ib_ref))
     _close(s, s_ref, 1e-6)
+
+
+# --------------------------------------------------------------------------
+# Gradients: torch.autograd.gradcheck at float64 (the geometry keeps
+# float64 inputs in float64), and float32 gradients against jax.grad on the
+# same inputs to 1e-5 of their largest magnitude (a few float32 ulps of
+# unit-scale sums).
+# --------------------------------------------------------------------------
+
+
+def _weights(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn", ["exp", "log"])
+def test_se3_gradcheck_float64(rng, fn):
+    xi = torch.tensor(_twists(rng, 6)[:, :].astype(np.float64))
+    xi[:, 3:] += 0.05  # off the Taylor switch: gradcheck steps by 1e-6
+    if fn == "exp":
+        assert torch.autograd.gradcheck(tse3.exp, (xi.requires_grad_(True),))
+    else:
+        T = tse3.exp(xi).requires_grad_(True)
+        assert torch.autograd.gradcheck(tse3.log, (T,))
+
+
+def test_warp_coords_gradcheck_float64(rng):
+    depth, T, K = _scene(rng, B=1, H=4, W=5)
+    xi = torch.tensor([[0.05, -0.02, -0.4, 0.003, -0.01, 0.002]], dtype=torch.float64,
+                      requires_grad=True)
+    d = torch.tensor(depth, dtype=torch.float64, requires_grad=True)
+    Kt = torch.tensor(K, dtype=torch.float64)
+    assert torch.autograd.gradcheck(
+        lambda dd, x: twarp.warp_coords(dd, tse3.exp(x), Kt)[0], (d, xi)
+    )
+
+
+def test_se3_and_warp_coords_grads_match_jax(rng):
+    import jax
+
+    depth, T, K = _scene(rng)
+    xi = np.ascontiguousarray(_twists(rng)[6:8])  # generic rotations
+    w_T = _weights(rng, (2, 4, 4))
+    w_c = _weights(rng, depth.shape + (2,))
+
+    def jloss(d, x):
+        coords, _ = jwarp.warp_coords(d, jse3.exp(x), K)
+        return jnp.sum(coords * w_c) + jnp.sum(jse3.exp(x) * w_T)
+
+    ref_d, ref_x = jax.grad(jloss, argnums=(0, 1))(depth, xi)
+    td = torch.from_numpy(depth).requires_grad_(True)
+    tx = torch.from_numpy(xi).requires_grad_(True)
+    coords, _ = twarp.warp_coords(td, tse3.exp(tx), torch.from_numpy(K))
+    ((coords * torch.from_numpy(w_c)).sum()
+     + (tse3.exp(tx) * torch.from_numpy(w_T)).sum()).backward()
+    for got, ref in ((td.grad, ref_d), (tx.grad, ref_x)):
+        ref = np.asarray(ref)
+        assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -58,3 +58,25 @@ def test_smoothness_nhwc_matches_jax(rng):
     ref = float(jsmooth.smoothness_loss(disp, img))
     got = float(tsmooth.smoothness_loss(torch.from_numpy(disp), torch.from_numpy(img)))
     assert abs(got - ref) <= 1e-5
+
+
+def test_loss_gradients_match_jax(rng):
+    """d loss / d warped (masked L1 and SSIM) and d loss / d disp
+    (edge-aware smoothness) against jax.grad, to 1e-5 of their largest
+    magnitude (float32, sums in different orders)."""
+    import jax
+
+    warped, target, valid = _inputs(rng)
+    disp = rng.uniform(0.01, 0.3, (2, 16, 40, 1)).astype(np.float32)
+    for ssim_weight in (0.0, 0.85):
+        ref = np.asarray(jax.grad(
+            lambda w: jphoto.photometric_loss_chw(w, target, valid, ssim_weight))(warped))
+        tw = torch.from_numpy(warped).requires_grad_(True)
+        tphoto.photometric_loss_chw(tw, torch.from_numpy(target), torch.from_numpy(valid),
+                                    ssim_weight).backward()
+        assert np.abs(tw.grad.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    ref = np.asarray(jax.grad(
+        lambda d: jsmooth.smoothness_loss(d, target, image_layout="chw"))(disp))
+    td = torch.from_numpy(disp).requires_grad_(True)
+    tsmooth.smoothness_loss(td, torch.from_numpy(target), image_layout="chw").backward()
+    assert np.abs(td.grad.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -88,8 +88,15 @@ def test_eval_step_matches_jax(setup):
     for k, r in ref.items():
         g = float(got[k])
         assert abs(g - float(r)) <= 1e-4 * abs(float(r)), (k, g, float(r))
-    with pytest.raises(NotImplementedError):
-        tloop.compute_losses(tcfg, models, tloop.batch_to_device(tbatch, "cpu"), train=True)
+    # The same graph in train mode: batch statistics, a differentiable
+    # total, the frozen feature net left in eval mode (held against
+    # jax.grad in tests/test_torch_train.py).
+    total, train_metrics = tloop.compute_losses(
+        tcfg, models, tloop.batch_to_device(tbatch, "cpu"), train=True
+    )
+    assert set(train_metrics) == set(ref) and total.requires_grad
+    assert models.depth.training and not models.feat.training
+    assert float(train_metrics["loss/total"].detach()) != float(got["loss/total"])
 
 
 def test_serving_matches_jax(setup):
@@ -140,6 +147,9 @@ def test_profiling_sorts_kernels_and_unions_busy_time():
     assert profiling.category("Memcpy HtoD (Pageable -> Device)") == "memcpy"
     assert profiling.category("ampere_bf16_s16816gemm_128x64") == "matmul"
     assert profiling.category("vectorized_elementwise_kernel") == "other"
+    assert profiling.category("void stereo_bwd_u_kernel(float const*)") == "warp_kernels"
+    assert profiling.category("void stereo_bwd_src_kernel(float const*)") == "warp_kernels"
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="GPU"):
-            profiling.profile_eval("tiny_test")
+        for mode in ("eval", "train"):
+            with pytest.raises(RuntimeError, match="GPU"):
+                profiling.profile(mode, "tiny_test")

@@ -162,3 +162,162 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         warp_kernels.gen_sample_cuda(src, u, u)
     assert warp_kernels.launch_count("stereo_fwd") == 0
     assert warp_kernels.launch_count("gen_fwd") == 0
+
+
+# --------------------------------------------------------------------------
+# The gradient boundaries. Tolerance: 1e-5 absolute between the port's
+# autograd.Functions and jax.vjp of the reference's custom VJPs (Pallas in
+# interpret mode) on the same inputs; the cotangent is zero outside
+# `valid`, as the loss makes it (outside `valid` both sides are
+# unspecified). gradcheck runs the plain routes at float64.
+# --------------------------------------------------------------------------
+
+
+def _masked_cotangent(rng, shape, valid):
+    g = rng.normal(size=shape).astype(np.float32)
+    return g * np.asarray(valid)[:, None]
+
+
+@pytest.mark.parametrize("W,dmax", [(128, 24), (150, 64)])
+def test_stereo_function_grads_match_pallas_vjp(rng, W, dmax):
+    import jax
+
+    B, C, H = 2, 3, 16
+    src = rng.normal(size=(B, C, H, W)).astype(np.float32)
+    depth = rng.uniform(1.5, 40.0, (B, H, W)).astype(np.float32)
+    disp, u = warp_pallas.stereo_disparity_u(depth, FXB, W)
+    valid = warp_pallas.stereo_valid_mask(depth, disp, u, H, W, dmax)
+    assert np.asarray(valid).mean() > 0.3
+    g = _masked_cotangent(rng, src.shape, valid)
+    ref_out, vjp = jax.vjp(lambda s, uu: warp_pallas._stereo_sample_chw(s, uu, dmax), src, u)
+    ref_dsrc, ref_du = vjp(g)
+
+    tsrc = _t(src).requires_grad_(True)
+    tu = _t(u).requires_grad_(True)
+    out = warp_kernels.StereoSample.apply(tsrc, tu, dmax)
+    out.backward(_t(g))
+    _assert_match(out.detach(), torch.from_numpy(np.array(valid)), ref_out, valid)
+    np.testing.assert_allclose(tu.grad.numpy(), np.asarray(ref_du), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tsrc.grad.numpy(), np.asarray(ref_dsrc), rtol=0, atol=1e-5)
+    assert np.abs(np.asarray(ref_dsrc)).max() > 0.1 and np.abs(np.asarray(ref_du)).max() > 0.1
+
+
+@pytest.mark.parametrize(
+    "C,H,W,pad_v,twist",
+    [(3, 24, 128, 8, SMALL), (19, 24, 128, 8, SMALL), (3, 32, 128, 8, PITCH)],
+)
+def test_gen_function_grads_match_pallas_vjp(rng, C, H, W, pad_v, twist):
+    import jax
+
+    src, depth, T, K = _scene(rng, C, H, W, twist)
+    u, v, valid = warp_pallas._gen_warp_prep(depth, T, K, H, W, pad_v)
+    u, v = np.asarray(u), np.asarray(v)
+    g = _masked_cotangent(rng, src.shape, valid)
+    _, vjp = jax.vjp(lambda uu, vv: warp_pallas._gen_sample_chw(src, uu, vv, pad_v), u, v)
+    ref_du, ref_dv = vjp(g)
+
+    tu, tv = _t(u).requires_grad_(True), _t(v).requires_grad_(True)
+    warp_kernels.FrozenGenSample.apply(_t(src), tu, tv).backward(_t(g))
+    np.testing.assert_allclose(tu.grad.numpy(), np.asarray(ref_du), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(ref_dv), rtol=0, atol=1e-5)
+    assert np.abs(np.asarray(ref_du)).max() > 0.1
+
+
+def test_gen_function_grads_on_the_no_window_branch(rng):
+    """Where no window fits (16 rows), the reference differentiates the
+    plain bilinear sampler; the port's no-window branch runs the same
+    Function, whose gradient must equal jax.vjp of that sampler."""
+    import jax
+
+    C, H, W = 3, 16, 128
+    assert tops.kernel_pad_v(H, 16) is None
+    src, depth, T, K = _scene(rng, C, H, W, SMALL)
+    coords, front = jwarp.warp_coords(depth, T, K)
+    coords = np.asarray(coords)
+    src_hwc = np.ascontiguousarray(src.transpose(0, 2, 3, 1))
+    (_, ib), vjp = jax.vjp(lambda c: jwarp.bilinear_sample(src_hwc, c), coords)
+    valid = np.asarray(ib) & np.asarray(front)
+    g = _masked_cotangent(rng, src.shape, valid)
+    (ref_dc,) = vjp((g.transpose(0, 2, 3, 1), np.zeros(valid.shape, jax.dtypes.float0)))
+
+    tu = _t(coords[..., 0]).requires_grad_(True)
+    tv = _t(coords[..., 1]).requires_grad_(True)
+    warp_kernels.FrozenGenSample.apply(_t(src), tu, tv).backward(_t(g))
+    ref_dc = np.asarray(ref_dc)
+    np.testing.assert_allclose(tu.grad.numpy(), ref_dc[..., 0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tv.grad.numpy(), ref_dc[..., 1], rtol=0, atol=1e-5)
+
+
+def test_frozen_warp_on_the_no_window_branch_differentiates_depth_and_pose(rng):
+    C, H, W = 3, 16, 128
+    src, depth, T, K = _scene(rng, C, H, W, SMALL)
+    tdepth = _t(depth).requires_grad_(True)
+    ttwist = torch.tensor([SMALL], requires_grad=True)
+    from depthvo_tpu_torch.geometry import se3 as tse3
+
+    warped, valid = tops.frozen_warp_chw(_t(src), tdepth, tse3.exp(ttwist), _t(K))
+    assert warped.grad_fn is not None
+    (warped * valid[:, None]).sum().backward()
+    assert tdepth.grad.abs().max() > 0 and ttwist.grad.abs().max() > 0
+
+
+def _fractional(x, lo=0.2, hi=0.8):
+    """Move x off the integer grid (the bilinear taps' kinks)."""
+    return np.floor(x) + lo + (hi - lo) * (x - np.floor(x))
+
+
+def test_stereo_function_gradcheck_float64(rng):
+    """Disparities in (0, dmax]; column 0, where no positive disparity
+    stays in the image, is left out of the checked output."""
+    B, C, H, W, dmax = 1, 2, 3, 12, 6
+    cols = np.arange(W, dtype=np.float64)[None, None, :]
+    disp = rng.uniform(0.2, 1.0, (B, H, W)) * np.minimum(np.maximum(cols, 0.25), dmax - 1)
+    src = torch.tensor(rng.normal(size=(B, C, H, W)), requires_grad=True)
+    tu = torch.tensor(_fractional(cols - disp), requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda s, uu: warp_kernels.StereoSample.apply(s, uu, dmax)[..., 1:], (src, tu)
+    )
+
+
+def test_gen_function_gradcheck_float64(rng):
+    B, C, H, W = 1, 3, 5, 7
+    src = torch.tensor(rng.normal(size=(B, C, H, W)))
+    u = torch.tensor(_fractional(rng.uniform(0.0, W - 2.0, (B, H, W))), requires_grad=True)
+    v = torch.tensor(_fractional(rng.uniform(0.0, H - 2.0, (B, H, W))), requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda uu, vv: warp_kernels.FrozenGenSample.apply(src, uu, vv), (u, v)
+    )
+
+
+def test_stereo_bwd_src_plain_equals_a_scatter_within_the_bound(rng):
+    """The shift form of d_src is the scatter of (1-au) g to u0 and au g
+    to u0+1, for outputs whose disparity is within [0, dmax]; farther
+    taps drop, as in the reference."""
+    B, C, H, W, dmax = 2, 3, 4, 40, 8
+    u = np.arange(W, dtype=np.float32)[None, None, :] - rng.uniform(0, 14, (B, H, W))
+    u = u.astype(np.float32)
+    g = rng.normal(size=(B, C, H, W)).astype(np.float32)
+    got = warp_kernels.stereo_bwd_src_plain(_t(g), _t(u), dmax).numpy()
+    uc = np.clip(u, 0, W - 1)
+    u0 = np.floor(uc).astype(int)
+    au = uc - u0
+    ref = np.zeros_like(g)
+    for b, i, j in np.ndindex(B, H, W):
+        for x, w in ((u0[b, i, j], 1 - au[b, i, j]), (u0[b, i, j] + 1, au[b, i, j])):
+            if x < W and 0 <= j - x < dmax + 2:
+                ref[b, :, i, x] += w * g[b, :, i, j]
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("wrapper", ["stereo_bwd_u", "stereo_bwd_src", "gen_fwd_aux"])
+def test_new_cuda_wrappers_refuse_cpu_tensors(wrapper):
+    src = torch.zeros(1, 3, 8, 16)
+    u = torch.zeros(1, 8, 16)
+    call = {
+        "stereo_bwd_u": lambda: warp_kernels.stereo_bwd_u_cuda(src, src, u),
+        "stereo_bwd_src": lambda: warp_kernels.stereo_bwd_src_cuda(src, u, 8),
+        "gen_fwd_aux": lambda: warp_kernels.gen_sample_cuda(src, u, u, emit_grad_aux=True),
+    }[wrapper]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+    assert sum(warp_kernels.LAUNCHES.values()) == 0
