@@ -20,13 +20,18 @@ with a nonzero exit code:
              stereo_bwd_src (d_src everywhere, driven through the stereo
              autograd.Function with a source that requires grad) <= 1e-6
              on a cotangent that is zero outside ``valid``, as the loss
-             makes it; and the device time of kernel, plain version and
-             the library yardstick (``F.grid_sample``; its backward for
-             the grid or the input for K2/K3; forward plus grid backward
-             for K4 with its factors, timed also with the contraction),
-             each the median of 25 CUDA-event-timed replays of a CUDA
-             graph of 10 launches (host launch overhead excluded, L2
-             warm), beside the byte bound at 3.35 TB/s.
+             makes it; stereo_bwd_src also on the sample columns of
+             ``adversarial_stereo_u`` with a cotangent that is nonzero
+             everywhere (<= 1e-6, and two launches identical bit for
+             bit); gen_bwd_uv (d_u, d_v everywhere, also through the
+             general autograd.Function) <= 1e-6; and the device time of
+             kernel, plain version and the library yardstick
+             (``F.grid_sample``; its backward for the grid or the input
+             for K2/K3/gen_bwd_uv; forward plus grid backward for K4 with
+             its factors and for the train step's pair gen_fwd +
+             gen_bwd_uv), each the median of 25 CUDA-event-timed replays
+             of a CUDA graph of 10 launches (host launch overhead
+             excluded, L2 warm), beside the byte bound at 3.35 TB/s.
 4. slice   - the held-out loss pass (``make_eval_step`` + ``run_validation``,
              what ``cli test`` runs) on full_feat at 608x160, batch 4:
              float32 with TF32 off against the same pass on the CPU (plain
@@ -46,16 +51,16 @@ with a nonzero exit code:
              elsewhere, as one vector, <= 4x that spread; then the main
              path: ``cli train`` on the default (bfloat16) config, launch
              counts reset just before and read just after (exactly 4
-             stereo_fwd, 4 stereo_bwd_u, 4 gen_fwd_aux, 0 stereo_bwd_src
-             per step), finite losses, and ms/step, frames/s and peak
-             memory over 12 steady steps on pre-made batches.
+             stereo_fwd, 4 stereo_bwd_u, 4 gen_fwd, 4 gen_bwd_uv and no
+             gen_fwd_aux or stereo_bwd_src per step), finite losses, and
+             ms/step, frames/s and peak memory over 12 steady steps on
+             pre-made batches.
 6. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
              uint8 batch and pose of its frame pairs; shapes, finiteness
              and latency.
 
 The last three lines are the nvidia-smi line, the ``{"kernels": [...]}``
-summary (launches from the main path that runs each kernel: ``cli
-train`` for all but plain gen_fwd, which ``cli test`` runs) and
+summary (launches per step of the main path, ``cli train``) and
 ``{"ok": true, "device": {...}}``. Without a GPU the script
 exits with code 1 and prints no result.
 """
@@ -67,6 +72,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -79,6 +85,7 @@ K1_TOL = 2e-7
 K2_TOL = 1e-6
 K3_TOL = 1e-6
 K4_TOL = 1e-6
+K5_TOL = 1e-6
 METRIC_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 STATS_RTOL = 2e-4
@@ -126,6 +133,28 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def adversarial_stereo_u(rng, B: int, h: int, w: int, dmax: int):
+    """Sample columns (B, h, w) float32 that stress stereo_bwd_src, from a
+    numpy Generator: per-pixel disparities in [-4, dmax + 8] (not
+    monotone; some negative, some beyond the bound, whose taps drop),
+    columns sampled left of 0 and right of w - 1, integer u on every 7th
+    column, and in every row a run of 16 to 24 outputs sharing one u0."""
+    import numpy as np
+
+    cols = np.arange(w, dtype=np.float64)
+    u = cols - rng.uniform(-4.0, dmax + 8.0, (B, h, w))
+    u[:, 0::3, 1::11] = -rng.uniform(0.5, 20.0, u[:, 0::3, 1::11].shape)
+    u[:, 1::3, 2::11] = (w - 1) + rng.uniform(0.5, 20.0, u[:, 1::3, 2::11].shape)
+    u[:, :, ::7] = np.round(u[:, :, ::7])
+    for b, i in np.ndindex(B, h):
+        n = min(w, int(rng.integers(16, 25)))
+        j0 = int(rng.integers(0, w - n + 1))
+        frac = rng.uniform(0.0, 0.99, n)
+        frac[np.arange(j0, j0 + n) % 7 == 0] = 0.0
+        u[b, i, j0:j0 + n] = np.clip(np.floor(u[b, i, j0]), 0, w - 2) + frac
+    return u.astype(np.float32)
+
+
 def masked_max_err(a, b, valid) -> float:
     import torch
 
@@ -153,12 +182,19 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build()
     seconds = time.perf_counter() - t0
-    ptxas = []
+    ptxas = {}
     for path in libs.values():
         log = path.with_name(path.name + ".log")
-        if log.exists():
-            ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+        name = None
+        for ln in log.read_text().splitlines() if log.exists() else ():
+            entry = re.search(r"Compiling entry function '(\w+)'", ln)
+            if entry:
+                mangled = entry.group(1)
+                name = re.search(r"\d+([a-z_]+_kernel)", mangled).group(1)
+                name += {"ILb1E": "<true>", "ILb0E": "<false>"}.get(
+                    next((t for t in ("ILb1E", "ILb0E") if t in mangled), ""), "")
+            elif name and ("registers" in ln or "spill" in ln):
+                ptxas[name] = (ptxas.get(name, "") + " " + ln.split(":", 1)[-1].strip()).strip()
     emit({"phase": "build", "seconds": seconds, "sources": sorted(libs),
           "ptxas": ptxas})
 
@@ -212,12 +248,6 @@ def phase_kernels(cfg, dev):
         input (mask (True, False)) or the grid ((False, True))."""
         return torch.ops.aten.grid_sampler_2d_backward(g, src, grid, 0, 1, True, list(mask))
 
-    def aux_and_contraction(src, u, v, g):
-        """What the train step runs for one general warp: K4 with its
-        factors, then the backward's contraction."""
-        _, s_aux, d_aux = wk.gen_sample_cuda(src, u, v, True)
-        return torch.sum(g * s_aux, dim=1), torch.sum(g * d_aux, dim=1)
-
     for h, w in scale_shapes(cfg):
         depth = scene["depth"][:, None]
         depth = (depth if (h, w) == (H, W) else resize_bilinear_chw(depth, h, w))[:, 0].contiguous()
@@ -263,6 +293,16 @@ def phase_kernels(cfg, dev):
                                  f"or d_src err {err_src} > {K3_TOL}")
         if not float(src_req.grad.abs().max()) > 0:
             raise AssertionError(f"stereo_bwd_src at {(h, w)} produced no gradient")
+        # K3 on adversarial sample columns with a cotangent that is nonzero
+        # everywhere: dropped taps, large buckets, integer and clipped u.
+        u_adv = torch.as_tensor(adversarial_stereo_u(np.random.default_rng(h), BATCH, h, w,
+                                                     dmax), device=dev)
+        g_adv = torch.randn(src.shape, device=dev, generator=gen)
+        d_adv = wk.stereo_bwd_src_cuda(g_adv, u_adv, dmax)
+        err_adv = float(torch.abs(d_adv - wk.stereo_bwd_src_plain(g_adv, u_adv, dmax)).max())
+        if not (err_adv <= K3_TOL and torch.equal(d_adv, wk.stereo_bwd_src_cuda(g_adv, u_adv, dmax))):
+            raise AssertionError(f"stereo_bwd_src at {(h, w)} on adversarial u: max err "
+                                 f"{err_adv} > {K3_TOL}, or two launches differ")
         nbytes = 4 * (2 * src.numel() + 2 * u.numel())
         b_ms, b_by = bound_ms(nbytes, 3 * src.numel())
         rows.append({
@@ -277,7 +317,8 @@ def phase_kernels(cfg, dev):
         b_ms, b_by = bound_ms(nbytes, 4 * g.numel())
         rows.append({
             "kernel": "stereo_bwd_src", "shape": list(src.shape), "dmax": dmax,
-            "max_abs_err": err_src,
+            "max_abs_err": max(err_src, err_adv), "adversarial_max_abs_err": err_adv,
+            "adversarial_ms": device_ms(lambda: wk.stereo_bwd_src_cuda(g_adv, u_adv, dmax)),
             "ms": device_ms(lambda: wk.stereo_bwd_src_cuda(g, u, dmax)),
             "plain_ms": device_ms(lambda: wk.stereo_bwd_src_plain(g, u, dmax)),
             "library_ms": device_ms(lambda: lib_sample_bwd(g, src, grid, (True, False))),
@@ -303,6 +344,18 @@ def phase_kernels(cfg, dev):
         if not max(errs) <= K4_TOL:
             raise AssertionError(f"gen_fwd at {(h, w)}: max errs {errs} > {K4_TOL}")
         grid = grid_of(u.clamp(0, w - 1), v.clamp(0, h - 1), h, w)
+        # gen_bwd_uv: d_u and d_v are defined on every pixel (u and v are
+        # clipped), so it is held everywhere on a dense cotangent, and
+        # through the general autograd.Function.
+        g_all = torch.randn(src.shape, device=dev, generator=gen)
+        plain_uv = wk.gen_bwd_uv_plain(src, g_all, u, v)
+        u_req, v_req = u.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        wk.FrozenGenSample.apply(src, u_req, v_req).backward(g_all)
+        err_bwd = max(float(torch.abs(a - b).max()) for a, b in
+                      zip((*wk.gen_bwd_uv_cuda(src, g_all, u, v), u_req.grad, v_req.grad),
+                          plain_uv * 2))
+        if not err_bwd <= K5_TOL:
+            raise AssertionError(f"gen_bwd_uv at {(h, w)}: max err {err_bwd} > {K5_TOL}")
         g = torch.randn(src.shape, device=dev, generator=gen) * valid[:, None]
         for aux in (False, True):
             nbytes = 4 * ((3 if aux else 1) * src.numel() + src.numel() + 2 * u.numel())
@@ -317,15 +370,29 @@ def phase_kernels(cfg, dev):
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
             }
             if aux:
-                # Yardstick of the train step's general warp: grid_sample
-                # forward plus its grid backward, against K4 with its
-                # factors plus the contraction.
                 row["library_ms"] = device_ms(
                     lambda: (lib_sample(src, grid), lib_sample_bwd(g, src, grid, (False, True))))
-                row["with_contraction_ms"] = device_ms(lambda: aux_and_contraction(src, u, v, g))
             else:
                 row["library_ms"] = device_ms(lambda: lib_sample(src, grid))
             rows.append(row)
+        nbytes = 4 * (2 * src.numel() + 4 * u.numel())
+        b_ms, b_by = bound_ms(nbytes, 19 * src.numel())
+        pair_bytes = nbytes + 4 * (2 * src.numel() + 2 * u.numel())
+        rows.append({
+            "kernel": "gen_bwd_uv", "shape": list(src.shape), "pad_v": pad_v,
+            "max_abs_err": err_bwd,
+            "ms": device_ms(lambda: wk.gen_bwd_uv_cuda(src, g, u, v)),
+            "plain_ms": device_ms(lambda: wk.gen_bwd_uv_plain(src, g, u, v)),
+            "library_ms": device_ms(lambda: lib_sample_bwd(g, src, grid, (False, True))),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            # The train step's general warp: gen_fwd + gen_bwd_uv against
+            # grid_sample forward plus its grid backward.
+            "pair_ms": device_ms(lambda: (wk.gen_sample_cuda(src, u, v),
+                                          wk.gen_bwd_uv_cuda(src, g, u, v))),
+            "pair_library_ms": device_ms(
+                lambda: (lib_sample(src, grid), lib_sample_bwd(g, src, grid, (False, True)))),
+            "pair_bound_ms": bound_ms(pair_bytes, 28 * src.numel())[0],
+        })
     emit({"phase": "kernels", "shapes": rows})
     return rows
 
@@ -336,7 +403,8 @@ def _f32_config(cfg):
     )
 
 
-KERNELS = ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_aux")
+KERNELS = ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_aux",
+           "gen_bwd_uv")
 
 
 def _check_counts(per_call: dict, n_calls: int) -> dict:
@@ -358,7 +426,7 @@ def _eval_launches(cfg) -> dict:
 
 def _train_launches(cfg) -> dict:
     n = cfg.model.num_scales
-    return {"stereo_fwd": n, "stereo_bwd_u": n, "gen_fwd_aux": n}
+    return {"stereo_fwd": n, "stereo_bwd_u": n, "gen_fwd": n, "gen_bwd_uv": n}
 
 
 def phase_slice(variant: str, dev):
@@ -429,7 +497,6 @@ def phase_slice(variant: str, dev):
     out["bf16"] = {"ms_per_batch": ms, "frames_per_s": BATCH * 1e3 / ms,
                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     emit(out)
-    return launches
 
 
 def _float_batch(batch, noise_seed=None):
@@ -656,29 +723,30 @@ def main() -> int:
     phase_build()
     cfg = full_feat(batch_size=BATCH)
     rows = phase_kernels(_f32_config(cfg), dev)
-    eval_launches = phase_slice("full_feat", dev)
+    phase_slice("full_feat", dev)
     train_launches = phase_train("full_feat", dev)
     phase_serve(dev)
 
     summary = []
     pallas = "depthvo_tpu/ops/warp_pallas.py"
-    for kernel, replaces, path in (
-        ("stereo_fwd", f"{pallas}:102", "train"),
-        ("stereo_bwd_u", f"{pallas}:126", "train"),
-        ("stereo_bwd_src", f"{pallas}:148", "train"),
-        ("gen_fwd", f"{pallas}:523", "test"),
-        ("gen_fwd_aux", f"{pallas}:523", "train"),
+    for kernel, replaces in (
+        ("stereo_fwd", f"{pallas}:102"),
+        ("stereo_bwd_u", f"{pallas}:126"),
+        ("stereo_bwd_src", f"{pallas}:148"),
+        ("gen_fwd", f"{pallas}:523"),
+        ("gen_fwd_aux", f"{pallas}:523"),
+        ("gen_bwd_uv", f"{pallas}:651"),
     ):
         mine = [r for r in rows if r["kernel"] == kernel]
-        launches = (train_launches if path == "train" else eval_launches)[kernel]
         summary.append({
             "name": kernel, "route": "cuda",
             "source": "depthvo_tpu_torch/ops/csrc/warp.cu", "replaces": replaces,
-            # The main path whose run counted the launches (`cli train`
-            # steps or `cli test` batches); stereo_bwd_src is on the
-            # train step's custom VJP but runs only for a source that
-            # needs a gradient, which the main path has not.
-            "path": f"cli {path}", "launches": launches,
+            # Launches per step of the main path, `cli train`. On its
+            # custom VJPs, stereo_bwd_src runs only for a stereo source
+            # that needs a gradient and gen_fwd_aux not at all (the
+            # backward recomputes the factors in gen_bwd_uv); the main
+            # path launches neither.
+            "path": "cli train", "launches": train_launches[kernel],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             # Per step or batch of the main path: one launch at each shape.
             "ms": sum(r["ms"] for r in mine),

@@ -5,9 +5,10 @@
   kernel, differentiated by ``stereo_bwd_u`` (and ``stereo_bwd_src`` when
   the source needs a gradient); every scale of the stereo loss.
 * ``frozen_warp_chw`` - general warp of a constant source through the
-  ``gen_fwd`` kernel, differentiated through its gradient factors
-  (temporal and frozen-feature losses), with the reference's adaptive
-  vertical window.
+  ``gen_fwd`` kernel, differentiated with respect to the sample
+  coordinates by ``gen_bwd_uv``, which recomputes the taps from the saved
+  source (temporal and frozen-feature losses), with the reference's
+  adaptive vertical window.
 
 Dispatch is on the tensor's device (``warp_kernels``): CPU tensors take
 the plain PyTorch versions, CUDA tensors the kernels, never both.

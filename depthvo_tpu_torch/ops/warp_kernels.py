@@ -1,7 +1,7 @@
 """Warp kernels, their gradient boundaries and their coordinate/mask math
 (counterpart of ``depthvo_tpu/ops/warp_pallas.py``).
 
-Four kernels, each a hand-written CUDA kernel (``csrc/warp.cu``) with a
+Five kernels, each a hand-written CUDA kernel (``csrc/warp.cu``) with a
 plain PyTorch version of the same function beside it:
 
 * ``stereo_fwd`` (replaces ``_stereo_fwd_kernel``): the rectified-stereo
@@ -9,11 +9,15 @@ plain PyTorch version of the same function beside it:
 * ``stereo_bwd_u`` (replaces ``_stereo_bwd_u_kernel``): its gradient with
   respect to the sample column u, d_u = sum_c g * (s1 - s0).
 * ``stereo_bwd_src`` (replaces ``_stereo_bwd_src_kernel``): its gradient
-  with respect to the source, in the scatter-free gather form bounded by
-  the disparity bound ``dmax``.
+  with respect to the source: each output's two taps, with the taps of
+  outputs more than ``dmax + 1`` columns right of the source pixel
+  dropped, as in the reference's shift sum.
 * ``gen_fwd`` (replaces ``_gen_fwd_kernel``): the general warp of a
   frozen source, a 2-D bilinear sample, optionally with the gradient
   factors S = d out / d u and D = d out / d v.
+* ``gen_bwd_uv`` (replaces ``_gen_sample_chw_bwd``'s contraction of those
+  factors): d_u = sum_c g * S, d_v = sum_c g * D, with the taps and the
+  factors recomputed from the source.
 
 Dispatch is on the tensor's device: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, or the call raises. Each
@@ -24,8 +28,8 @@ Two ``torch.autograd.Function``s sit where the reference puts its custom
 VJPs, so autograd on either device runs the same backward contract:
 :class:`StereoSample` (``_stereo_sample_chw``: forward K1, backward K2 and,
 when the source needs a gradient, K3) and :class:`FrozenGenSample`
-(``_gen_sample_chw``: forward K4 with its factors, backward
-d_u = sum_c g * S, d_v = sum_c g * D, no source gradient). Gradients go
+(``_gen_sample_chw``: forward K4, backward ``gen_bwd_uv`` from the saved
+source, no source gradient). Gradients go
 to the unclipped coordinates with no clip derivative, as in the
 reference.
 
@@ -50,7 +54,8 @@ from depthvo_tpu_torch.ops import _build
 TILE_ROWS = 8  # the reference kernel's row tile; it shapes window_mask
 LANE = 128  # the reference kernel's lane block; |u - col| <= LANE - 1
 GEN_PAD_V = 16  # default vertical half-window (rows, a multiple of 8)
-MAX_BWD_SRC_WIDTH = 4096  # stereo_bwd_src stages 3 W words in 48 KB
+# stereo_bwd_src stages 44 W bytes per row in shared memory (227 KB a block)
+MAX_BWD_SRC_WIDTH = 5120
 
 # Launches per (kernel name, src shape); only the CUDA wrappers count,
 # where they launch.
@@ -79,6 +84,8 @@ def _kernels() -> ctypes.CDLL:
     lib.depthvo_stereo_bwd_src.restype = i
     lib.depthvo_gen_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.depthvo_gen_fwd.restype = i
+    lib.depthvo_gen_bwd_uv.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.depthvo_gen_bwd_uv.restype = i
     return lib
 
 
@@ -207,7 +214,7 @@ def stereo_bwd_u(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor) -> torch.T
 
 
 # --------------------------------------------------------------------------
-# K3: stereo backward with respect to the source (scatter-free).
+# K3: stereo backward with respect to the source.
 # --------------------------------------------------------------------------
 
 
@@ -276,16 +283,15 @@ class StereoSample(torch.autograd.Function):
 
 
 # --------------------------------------------------------------------------
-# K4: general frozen-source forward (optionally with gradient factors).
+# K4: general frozen-source forward (optionally with gradient factors) and
+# K5, its backward with respect to (u, v).
 # --------------------------------------------------------------------------
 
 
-def gen_sample_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                     emit_grad_aux: bool = False):
-    """Plain version of ``gen_fwd``: 2-D bilinear sample of src (B,C,H,W)
-    at (clip(u,0,W-1), clip(v,0,H-1)) with four ``torch.gather`` taps on
-    the flattened H*W. With ``emit_grad_aux`` also returns
-    S = (1-av)(s01-s00) + av(s11-s10) and D = h1 - h0."""
+def _gen_taps(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """The four bilinear taps of src (B,C,H,W) at (clip(u,0,W-1),
+    clip(v,0,H-1)), gathered on the flattened H*W, and the weights:
+    (s00, s01, s10, s11, au, av), au and av (B,1,H,W)."""
     B, C, H, W = src.shape
     u = u.to(src.dtype).clamp(0.0, W - 1)
     v = v.to(src.dtype).clamp(0.0, H - 1)
@@ -303,7 +309,16 @@ def gen_sample_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         idx = (y * W + x).reshape(B, 1, H * W).expand(B, C, H * W)
         return torch.gather(flat, 2, idx).reshape(B, C, H, W)
 
-    s00, s01, s10, s11 = tap(y0, x0), tap(y0, x1), tap(y1, x0), tap(y1, x1)
+    return tap(y0, x0), tap(y0, x1), tap(y1, x0), tap(y1, x1), au, av
+
+
+def gen_sample_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     emit_grad_aux: bool = False):
+    """Plain version of ``gen_fwd``: 2-D bilinear sample of src (B,C,H,W)
+    at (clip(u,0,W-1), clip(v,0,H-1)) with four ``torch.gather`` taps on
+    the flattened H*W. With ``emit_grad_aux`` also returns
+    S = (1-av)(s01-s00) + av(s11-s10) and D = h1 - h0."""
+    s00, s01, s10, s11, au, av = _gen_taps(src, u, v)
     h0 = (1.0 - au) * s00 + au * s01
     h1 = (1.0 - au) * s10 + au * s11
     out = (1.0 - av) * h0 + av * h1
@@ -333,34 +348,75 @@ def gen_sample_cuda(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return (out, s_aux, d_aux) if emit_grad_aux else out
 
 
-def gen_sample(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-               emit_grad_aux: bool = False):
-    """K4 on the tensor's device: plain version on the CPU, kernel on CUDA."""
+def gen_sample(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K4 (without the factors) on the tensor's device: plain version on
+    the CPU, kernel on CUDA."""
     if src.device.type == "cpu":
-        return gen_sample_plain(src, u, v, emit_grad_aux)
-    return gen_sample_cuda(src, u, v, emit_grad_aux)
+        return gen_sample_plain(src, u, v)
+    return gen_sample_cuda(src, u, v)
+
+
+def gen_bwd_uv_plain(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
+                     v: torch.Tensor):
+    """Plain version of ``gen_bwd_uv``: (d_u, d_v) with d_u[b,i,j] =
+    sum_c g[b,c,i,j] * S and d_v = sum_c g * D, S and D the factors of
+    ``gen_sample_plain(..., emit_grad_aux=True)``, summed in channel
+    order."""
+    s00, s01, s10, s11, au, av = _gen_taps(src, u, v)
+    s_aux = (1.0 - av) * (s01 - s00) + av * (s11 - s10)
+    d_aux = ((1.0 - au) * s10 + au * s11) - ((1.0 - au) * s00 + au * s01)
+    prod_u, prod_v = g * s_aux, g * d_aux
+    d_u = torch.zeros_like(prod_u[:, 0])
+    d_v = torch.zeros_like(prod_v[:, 0])
+    for c in range(src.shape[1]):
+        d_u = d_u + prod_u[:, c]
+        d_v = d_v + prod_v[:, c]
+    return d_u, d_v
+
+
+def gen_bwd_uv_cuda(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
+                    v: torch.Tensor):
+    """Launch ``gen_bwd_uv`` (csrc/warp.cu); raises, never falls back."""
+    B, C, H, W = _check_src(src)
+    _check_cuda("src", src, (B, C, H, W), src.device)
+    _check_cuda("g", g, (B, C, H, W), src.device)
+    _check_cuda("u", u, (B, H, W), src.device)
+    _check_cuda("v", v, (B, H, W), src.device)
+    d_u = torch.empty_like(u)
+    d_v = torch.empty_like(v)
+    _launch("gen_bwd_uv", _kernels().depthvo_gen_bwd_uv,
+            src.data_ptr(), g.data_ptr(), u.data_ptr(), v.data_ptr(),
+            d_u.data_ptr(), d_v.data_ptr(), B, C, H, W, _stream(src.device))
+    LAUNCHES[("gen_bwd_uv", (B, C, H, W))] += 1
+    return d_u, d_v
+
+
+def gen_bwd_uv(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """K5 on the tensor's device: plain version on the CPU, kernel on CUDA."""
+    if src.device.type == "cpu":
+        return gen_bwd_uv_plain(src, g, u, v)
+    return gen_bwd_uv_cuda(src, g, u, v)
 
 
 class FrozenGenSample(torch.autograd.Function):
     """``_gen_sample_chw``'s custom VJP: ``apply(src, u, v)`` with a frozen
-    src (it gets no gradient). The forward is K4, with the gradient
-    factors S, D only when u or v needs a gradient (so the eval path
-    launches plain ``gen_fwd``); the backward contracts them:
-    d_u = sum_c g * S, d_v = sum_c g * D (plain tensor ops, as the
-    reference's backward is plain XLA)."""
+    src (it gets no gradient). The forward is plain K4; when u or v needs
+    a gradient it saves (src, u, v), and the backward recomputes the taps
+    in ``gen_bwd_uv``: d_u = sum_c g * S, d_v = sum_c g * D. The
+    reference's forward emits S and D instead; the gradient is the same."""
 
     @staticmethod
     def forward(ctx, src, u, v):
-        if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
-            return gen_sample(src, u, v)
-        out, s_aux, d_aux = gen_sample(src, u, v, emit_grad_aux=True)
-        ctx.save_for_backward(s_aux, d_aux)
-        return out
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            ctx.save_for_backward(src, u, v)
+        return gen_sample(src, u, v)
 
     @staticmethod
     def backward(ctx, g):
-        s_aux, d_aux = ctx.saved_tensors
-        return None, torch.sum(g * s_aux, dim=1), torch.sum(g * d_aux, dim=1)
+        src, u, v = ctx.saved_tensors
+        d_u, d_v = gen_bwd_uv(src, g.contiguous(), u, v)
+        return (None, d_u if ctx.needs_input_grad[1] else None,
+                d_v if ctx.needs_input_grad[2] else None)
 
 
 # --------------------------------------------------------------------------

@@ -33,7 +33,7 @@ from depthvo_tpu_torch.train import loop
 from depthvo_tpu_torch.train.state import build_models, create_state, init_params, load_params
 
 WARP_KERNELS = ("stereo_fwd_kernel", "stereo_bwd_u_kernel", "stereo_bwd_src_kernel",
-                "gen_fwd_kernel")
+                "gen_fwd_kernel", "gen_bwd_uv_kernel")
 _CATEGORIES = (
     ("warp_kernels", WARP_KERNELS),
     ("memcpy", ("memcpy",)),
@@ -80,7 +80,8 @@ def _trace(run_step, data, top_kernels: int) -> Dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     launches = {k: warp_kernels.launch_count(k) / n for k in
-                ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_aux")}
+                ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_aux",
+                 "gen_bwd_uv")}
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_cat: Dict[str, float] = {}

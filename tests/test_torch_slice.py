@@ -149,6 +149,7 @@ def test_profiling_sorts_kernels_and_unions_busy_time():
     assert profiling.category("vectorized_elementwise_kernel") == "other"
     assert profiling.category("void stereo_bwd_u_kernel(float const*)") == "warp_kernels"
     assert profiling.category("void stereo_bwd_src_kernel(float const*)") == "warp_kernels"
+    assert profiling.category("void gen_bwd_uv_kernel(float const*)") == "warp_kernels"
     if not torch.cuda.is_available():
         for mode in ("eval", "train"):
             with pytest.raises(RuntimeError, match="GPU"):

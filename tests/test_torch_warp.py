@@ -22,6 +22,7 @@ import torch
 from depthvo_tpu import ops as jops
 from depthvo_tpu.geometry import camera as jcam, se3 as jse3, warp as jwarp
 from depthvo_tpu.ops import warp_pallas
+from chip_smoke import adversarial_stereo_u
 from depthvo_tpu_torch import ops as tops
 from depthvo_tpu_torch.geometry import warp as twarp
 from depthvo_tpu_torch.ops import warp_kernels
@@ -289,15 +290,10 @@ def test_gen_function_gradcheck_float64(rng):
     )
 
 
-def test_stereo_bwd_src_plain_equals_a_scatter_within_the_bound(rng):
-    """The shift form of d_src is the scatter of (1-au) g to u0 and au g
-    to u0+1, for outputs whose disparity is within [0, dmax]; farther
-    taps drop, as in the reference."""
-    B, C, H, W, dmax = 2, 3, 4, 40, 8
-    u = np.arange(W, dtype=np.float32)[None, None, :] - rng.uniform(0, 14, (B, H, W))
-    u = u.astype(np.float32)
-    g = rng.normal(size=(B, C, H, W)).astype(np.float32)
-    got = warp_kernels.stereo_bwd_src_plain(_t(g), _t(u), dmax).numpy()
+def _stereo_scatter(g, u, dmax):
+    """d_src as the scatter of (1-au) g to u0 and au g to u0+1 (u clipped
+    to [0, W-1]), keeping only taps with 0 <= j - x < dmax + 2."""
+    B, C, H, W = g.shape
     uc = np.clip(u, 0, W - 1)
     u0 = np.floor(uc).astype(int)
     au = uc - u0
@@ -306,10 +302,117 @@ def test_stereo_bwd_src_plain_equals_a_scatter_within_the_bound(rng):
         for x, w in ((u0[b, i, j], 1 - au[b, i, j]), (u0[b, i, j] + 1, au[b, i, j])):
             if x < W and 0 <= j - x < dmax + 2:
                 ref[b, :, i, x] += w * g[b, :, i, j]
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    return ref
 
 
-@pytest.mark.parametrize("wrapper", ["stereo_bwd_u", "stereo_bwd_src", "gen_fwd_aux"])
+def test_stereo_bwd_src_plain_equals_a_scatter_within_the_bound(rng):
+    """The shift form of d_src is the scatter of (1-au) g to u0 and au g
+    to u0+1, for outputs whose disparity is within [0, dmax]; farther
+    taps drop, as in the reference. Also on the smoke's adversarial
+    sample columns (negative and over-bound disparities, runs sharing one
+    u0, integer u, u left of 0 and right of W - 1) with a dense
+    cotangent."""
+    B, C, H, W, dmax = 2, 3, 4, 40, 8
+    u = np.arange(W, dtype=np.float32)[None, None, :] - rng.uniform(0, 14, (B, H, W))
+    for u in (u.astype(np.float32), adversarial_stereo_u(rng, B, H, W, dmax)):
+        g = rng.normal(size=(B, C, H, W)).astype(np.float32)
+        got = warp_kernels.stereo_bwd_src_plain(_t(g), _t(u), dmax).numpy()
+        np.testing.assert_allclose(got, _stereo_scatter(g, u, dmax), rtol=0, atol=1e-5)
+
+
+def test_reference_stereo_bwd_src_differs_only_where_its_rolls_wrap(rng):
+    """Outside ``valid`` the reference's d_src is not the shift sum: its
+    rolls wrap at the padded row end, so at W = 128 (no padding) outputs
+    near the row start that sample past the right edge send gradient to
+    the last two columns. Everywhere else the port's plain version equals
+    it. The loss's cotangent is zero there, so the train step never sees
+    the difference."""
+    import jax
+
+    B, C, H, W, dmax = 1, 2, 8, 128, 24
+    u = adversarial_stereo_u(rng, B, H, W, dmax)
+    src = rng.normal(size=(B, C, H, W)).astype(np.float32)
+    g = rng.normal(size=(B, C, H, W)).astype(np.float32)
+    _, vjp = jax.vjp(lambda s: warp_pallas._stereo_sample_chw(s, u, dmax), src)
+    ref = np.asarray(vjp(g)[0])
+    got = warp_kernels.stereo_bwd_src_plain(_t(g), _t(u), dmax).numpy()
+    cols = set(np.nonzero(np.abs(got - ref) > 1e-5)[3].tolist())
+    assert W - 1 in cols and cols <= {W - 2, W - 1}
+    np.testing.assert_allclose(got[..., : W - 2], ref[..., : W - 2], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("W,dmax", [(76, 9), (152, 80)])
+def test_adversarial_stereo_u_has_what_it_claims(rng, W, dmax):
+    """The smoke's stress input for stereo_bwd_src: every row has 16 or
+    more outputs sharing one u0, and the set has negative and over-bound
+    disparities, integer u and u on both sides of the image."""
+    B, H = 2, 6
+    u = adversarial_stereo_u(rng, B, H, W, dmax)
+    assert u.dtype == np.float32 and u.shape == (B, H, W)
+    u0 = np.floor(np.clip(u, 0, W - 1)).astype(int)
+    for b, i in np.ndindex(B, H):
+        assert np.bincount(u0[b, i]).max() >= 16
+    disp = np.arange(W)[None, None, :] - u
+    inside = (u >= 0) & (u <= W - 1)
+    assert (disp[inside] < 0).any() and (disp[inside] > dmax + 1).any()
+    assert (u == np.round(u)).mean() > 0.1 and (u < 0).any() and (u > W - 1).any()
+
+
+def test_stereo_bwd_src_dense_taps_drop_beyond_the_shift_range():
+    """With W <= dmax + 2 every tap of a nonnegative disparity counts; with
+    a tight bound the far taps drop, and a negative disparity never
+    counts."""
+    g = torch.ones(1, 1, 1, 6)
+    u = torch.tensor([[[0.0, 0.0, 0.0, 0.5, 5.0, 5.0]]])  # disparities 0 1 2 2.5 -1 0
+    full = warp_kernels.stereo_bwd_src_plain(g, u, None)
+    torch.testing.assert_close(full, torch.tensor([[[[3.5, 0.5, 0.0, 0.0, 0.0, 1.0]]]]))
+    tight = warp_kernels.stereo_bwd_src_plain(g, u, 0)  # n_shifts 2: j - x in {0, 1}
+    torch.testing.assert_close(tight, torch.tensor([[[[2.0, 0.0, 0.0, 0.0, 0.0, 1.0]]]]))
+
+
+@pytest.mark.parametrize("C", [3, 19])
+def test_gen_bwd_uv_plain_is_the_channel_order_contraction_of_the_factors(rng, C):
+    """d_u = sum_c g * S and d_v = sum_c g * D over gen_sample_plain's
+    factors, summed in channel order: bit for bit, on a dense cotangent
+    and coordinates reaching past every edge (u and v are clipped)."""
+    B, H, W = 2, 9, 13
+    src = _t(rng.normal(size=(B, C, H, W)))
+    g = _t(rng.normal(size=(B, C, H, W)))
+    u = _t(rng.uniform(-3.0, W + 2.0, (B, H, W)))
+    v = _t(rng.uniform(-3.0, H + 2.0, (B, H, W)))
+    _, s_aux, d_aux = warp_kernels.gen_sample_plain(src, u, v, emit_grad_aux=True)
+    ref_u, ref_v = torch.zeros(B, H, W), torch.zeros(B, H, W)
+    for c in range(C):
+        ref_u = ref_u + g[:, c] * s_aux[:, c]
+        ref_v = ref_v + g[:, c] * d_aux[:, c]
+    d_u, d_v = warp_kernels.gen_bwd_uv_plain(src, g, u, v)
+    assert torch.equal(d_u, ref_u) and torch.equal(d_v, ref_v)
+    assert d_u.abs().max() > 0.1 and d_v.abs().max() > 0.1
+
+
+def test_frozen_gen_sample_saves_only_the_source(rng):
+    """The general warp's Function keeps (src, u, v) for its backward: no
+    (B,C,H,W) tensor but the source itself (the reference's forward
+    emits the factors S and D instead; the port recomputes them)."""
+    B, C, H, W = 1, 19, 8, 16
+    src = _t(rng.normal(size=(B, C, H, W)))
+    u = _t(rng.uniform(0, W - 1, (B, H, W))).requires_grad_(True)
+    v = _t(rng.uniform(0, H - 1, (B, H, W))).requires_grad_(True)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        out = warp_kernels.FrozenGenSample.apply(src, u, v)
+    assert len(saved) == 3
+    full = [t for t in saved if t.ndim == 4]
+    assert len(full) == 1 and full[0].data_ptr() == src.data_ptr()
+    out.sum().backward()
+    assert u.grad.shape == (B, H, W) and v.grad.shape == (B, H, W)
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        warp_kernels.FrozenGenSample.apply(src, u.detach(), v.detach())
+    assert len(saved) == 3, "nothing is saved when no coordinate needs a gradient"
+
+
+@pytest.mark.parametrize("wrapper", ["stereo_bwd_u", "stereo_bwd_src", "gen_fwd_aux",
+                                     "gen_bwd_uv"])
 def test_new_cuda_wrappers_refuse_cpu_tensors(wrapper):
     src = torch.zeros(1, 3, 8, 16)
     u = torch.zeros(1, 8, 16)
@@ -317,6 +420,7 @@ def test_new_cuda_wrappers_refuse_cpu_tensors(wrapper):
         "stereo_bwd_u": lambda: warp_kernels.stereo_bwd_u_cuda(src, src, u),
         "stereo_bwd_src": lambda: warp_kernels.stereo_bwd_src_cuda(src, u, 8),
         "gen_fwd_aux": lambda: warp_kernels.gen_sample_cuda(src, u, u, emit_grad_aux=True),
+        "gen_bwd_uv": lambda: warp_kernels.gen_bwd_uv_cuda(src, src, u, u),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
