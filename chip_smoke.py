@@ -32,12 +32,21 @@ with a nonzero exit code:
              gen_bwd_uv), each the median of 25 CUDA-event-timed replays
              of a CUDA graph of 10 launches (host launch overhead
              excluded, L2 warm), beside the byte bound at 3.35 TB/s.
+             Then the main path's grouped forwards: one stereo_fwd launch
+             over the four stereo segments and one gen_fwd launch over the
+             three temporal segments and the fused finest one, each
+             segment bit for bit equal to its plain version under
+             ``valid``, and one launch of each over ragged segments (H*W
+             not a multiple of 4, a one-pixel-wide segment, mixed C) equal
+             everywhere; the grouped launch's time beside the four
+             one-segment launches and the four library calls timed
+             together, and the summed byte bound.
 4. slice   - the held-out loss pass (``make_eval_step`` + ``run_validation``,
              what ``cli test`` runs) on full_feat at 608x160, batch 4:
              float32 with TF32 off against the same pass on the CPU (plain
              versions, same weights, one batch, <= 1e-4 relative per
-             metric); 4 batches with exactly 4 stereo_fwd + 4 gen_fwd
-             launches per batch; then the main path: ``cli test`` on the
+             metric); 4 batches with exactly 1 stereo_fwd + 1 gen_fwd
+             launch per batch; then the main path: ``cli test`` on the
              default (bfloat16) config, launch counts reset just before and
              read just after, and its ms/batch, frames/s and peak memory.
 5. train   - the full_feat 608x160 train step: on the card the warps'
@@ -50,8 +59,8 @@ with a nonzero exit code:
              gradient is stable (moves <= 1e-5 under 1e-6 image noise),
              elsewhere, as one vector, <= 4x that spread; then the main
              path: ``cli train`` on the default (bfloat16) config, launch
-             counts reset just before and read just after (exactly 4
-             stereo_fwd, 4 stereo_bwd_u, 4 gen_fwd, 4 gen_bwd_uv and no
+             counts reset just before and read just after (exactly 1
+             stereo_fwd, 4 stereo_bwd_u, 1 gen_fwd, 4 gen_bwd_uv and no
              gen_fwd_aux or stereo_bwd_src per step), finite losses, and
              ms/step, frames/s and peak memory over 12 steady steps on
              pre-made batches.
@@ -60,7 +69,8 @@ with a nonzero exit code:
              and latency.
 
 The last three lines are the nvidia-smi line, the ``{"kernels": [...]}``
-summary (launches per step of the main path, ``cli train``) and
+summary (launches per step of the main path, ``cli train``; for
+stereo_fwd and gen_fwd the grouped launch's times) and
 ``{"ok": true, "device": {...}}``. Without a GPU the script
 exits with code 1 and prints no result.
 """
@@ -231,6 +241,7 @@ def phase_kernels(cfg, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     H, W = cfg.model.height, cfg.model.width
     rows = []
+    pyramid = {"stereo_fwd": [], "gen_fwd": []}  # per scale: (src, u[, v], valid, grid)
 
     def chw(x, h, w):
         x = x.permute(0, 3, 1, 2).contiguous()
@@ -258,7 +269,7 @@ def phase_kernels(cfg, dev):
         dmax = stereo_dmax(cfg, w)
         disp, u = wk.stereo_disparity_u(depth, Ks[..., 0, 0] * cfg.stereo_baseline, w)
         u = u.contiguous()
-        warped, valid = wk.stereo_warp_chw(src, depth, Ks[..., 0, 0] * cfg.stereo_baseline, dmax)
+        warped, valid = ops.stereo_warp_chw(src, depth, Ks[..., 0, 0] * cfg.stereo_baseline, dmax)
         valid_ref = wk.stereo_valid_mask(depth, disp, u, h, w, dmax)
         if not torch.equal(valid, valid_ref):
             raise AssertionError(f"stereo valid differs at {(h, w)}")
@@ -268,6 +279,7 @@ def phase_kernels(cfg, dev):
             raise AssertionError(f"stereo_fwd at {(h, w)}: max err {err} > {K1_TOL}")
         rowsv = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None].expand_as(u)
         grid = grid_of(u.clamp(0, w - 1), rowsv, h, w)
+        pyramid["stereo_fwd"].append((src, u, valid, grid))
         nbytes = 4 * (2 * src.numel() + u.numel())
         b_ms, b_by = bound_ms(nbytes, 4 * src.numel())
         rows.append({
@@ -286,7 +298,7 @@ def phase_kernels(cfg, dev):
         d_u = wk.stereo_bwd_u_cuda(src, g, u)
         err_u = float(torch.abs(d_u - wk.stereo_bwd_u_plain(src, g, u))[valid].max())
         src_req = src.clone().requires_grad_(True)
-        wk.StereoSample.apply(src_req, u, dmax).backward(g)
+        wk.stereo_sample_grouped([src_req], [u], [dmax])[0]().backward(g)
         err_src = float(torch.abs(src_req.grad - wk.stereo_bwd_src_plain(g, u, dmax)).max())
         if not (err_u <= K2_TOL and err_src <= K3_TOL):
             raise AssertionError(f"stereo backward at {(h, w)}: d_u err {err_u} > {K2_TOL} "
@@ -344,13 +356,14 @@ def phase_kernels(cfg, dev):
         if not max(errs) <= K4_TOL:
             raise AssertionError(f"gen_fwd at {(h, w)}: max errs {errs} > {K4_TOL}")
         grid = grid_of(u.clamp(0, w - 1), v.clamp(0, h - 1), h, w)
+        pyramid["gen_fwd"].append((src, u, v, valid, grid))
         # gen_bwd_uv: d_u and d_v are defined on every pixel (u and v are
         # clipped), so it is held everywhere on a dense cotangent, and
         # through the general autograd.Function.
         g_all = torch.randn(src.shape, device=dev, generator=gen)
         plain_uv = wk.gen_bwd_uv_plain(src, g_all, u, v)
         u_req, v_req = u.clone().requires_grad_(True), v.clone().requires_grad_(True)
-        wk.FrozenGenSample.apply(src, u_req, v_req).backward(g_all)
+        wk.frozen_gen_sample_grouped([src], [u_req], [v_req])[0]().backward(g_all)
         err_bwd = max(float(torch.abs(a - b).max()) for a, b in
                       zip((*wk.gen_bwd_uv_cuda(src, g_all, u, v), u_req.grad, v_req.grad),
                           plain_uv * 2))
@@ -393,6 +406,54 @@ def phase_kernels(cfg, dev):
                 lambda: (lib_sample(src, grid), lib_sample_bwd(g, src, grid, (False, True)))),
             "pair_bound_ms": bound_ms(pair_bytes, 28 * src.numel())[0],
         })
+
+    # The main path's grouped forwards: one launch over the pyramid, each
+    # segment bit for bit equal to its plain version under `valid`; then
+    # one launch over ragged segments (H*W % 4 = 2, 1 and 1, one pixel
+    # wide, mixed C), equal everywhere.
+    ragged = [(3, 37, 150), (19, 19, 75), (3, 9, 1)]
+    r_srcs = [torch.randn(BATCH, c, h, w, device=dev, generator=gen) for c, h, w in ragged]
+    r_cols = [torch.arange(w, device=dev, dtype=torch.float32) for _, _, w in ragged]
+    r_us = [(cols - 12 * torch.rand(BATCH, h, w, device=dev, generator=gen) + 2).contiguous()
+            for cols, (_, h, w) in zip(r_cols, ragged)]
+    r_vs = [((h - 1) * (1.2 * torch.rand(BATCH, h, w, device=dev, generator=gen) - 0.1))
+            .contiguous() for _, h, w in ragged]
+    for kernel, segs in pyramid.items():
+        stereo = kernel == "stereo_fwd"
+        srcs = [s[0] for s in segs]
+        maps = [[s[1] for s in segs]] + ([] if stereo else [[s[2] for s in segs]])
+        r_maps = [r_us] + ([] if stereo else [r_vs])
+        launch = wk.stereo_sample_pyramid_cuda if stereo else wk.gen_sample_pyramid_cuda
+        one = wk.stereo_sample_cuda if stereo else wk.gen_sample_cuda
+        plain = wk.stereo_sample_plain if stereo else wk.gen_sample_plain
+        outs = launch(srcs, *maps)
+        err = max(masked_max_err(o, plain(s, *m), seg[-2])
+                  for o, s, seg, *m in zip(outs, srcs, segs, *maps))
+        r_outs = launch(r_srcs, *r_maps)
+        err_r = max(float(torch.abs(o - plain(s, *m)).max())
+                    for o, s, *m in zip(r_outs, r_srcs, *r_maps))
+        if not (err == 0.0 and err_r == 0.0):
+            raise AssertionError(f"grouped {kernel}: max err {err} on the pyramid, {err_r} "
+                                 "on the ragged segments; the kernel is bit-exact")
+        per_value = 4 if stereo else 9
+        nbytes = sum(4 * (2 * s.numel() + len(maps) * s[:, 0].numel()) for s in srcs)
+        b_ms, b_by = bound_ms(nbytes, sum(per_value * s.numel() for s in srcs))
+        # What this card's memory reaches in practice: one copy that reads
+        # and writes as many bytes as the kernel must move.
+        copy_src = torch.empty(nbytes // 8, device=dev)
+        copy_dst = torch.empty_like(copy_src)
+        rows.append({
+            "kernel": kernel, "pyramid": True, "shapes": [list(s.shape) for s in srcs],
+            "ragged_shapes": [list(s.shape) for s in r_srcs],
+            "max_abs_err": err, "ragged_max_abs_err": err_r,
+            "ms": device_ms(lambda: launch(srcs, *maps)),
+            "per_scale_ms": device_ms(lambda: [one(s, *m) for s, *m in zip(srcs, *maps)]),
+            "plain_ms": device_ms(lambda: [plain(s, *m) for s, *m in zip(srcs, *maps)]),
+            "library_ms": device_ms(
+                lambda: [lib_sample(s, seg[-1]) for s, seg in zip(srcs, segs)]),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "copy_ms": device_ms(lambda: copy_dst.copy_(copy_src)),
+        })
     emit({"phase": "kernels", "shapes": rows})
     return rows
 
@@ -409,7 +470,7 @@ KERNELS = ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_a
 
 def _check_counts(per_call: dict, n_calls: int) -> dict:
     """Launches since the last reset: ``per_call[k]`` of kernel k per
-    batch or step (one per scale), none of the others."""
+    batch or step, none of the others."""
     from depthvo_tpu_torch.ops import warp_kernels as wk
 
     counts = {k: wk.launch_count(k) for k in KERNELS}
@@ -420,13 +481,14 @@ def _check_counts(per_call: dict, n_calls: int) -> dict:
 
 
 def _eval_launches(cfg) -> dict:
-    n = cfg.model.num_scales
-    return {"stereo_fwd": n, "gen_fwd": n}
+    """One grouped forward per kernel over the whole pyramid."""
+    return {"stereo_fwd": 1, "gen_fwd": 1}
 
 
 def _train_launches(cfg) -> dict:
+    """The grouped forwards, then one backward launch per scale."""
     n = cfg.model.num_scales
-    return {"stereo_fwd": n, "stereo_bwd_u": n, "gen_fwd": n, "gen_bwd_uv": n}
+    return {"stereo_fwd": 1, "stereo_bwd_u": n, "gen_fwd": 1, "gen_bwd_uv": n}
 
 
 def phase_slice(variant: str, dev):
@@ -567,16 +629,17 @@ def phase_train(variant: str, dev):
     img = torch.rand(2, 3, 40, 152, device=dev)
     K = torch.as_tensor(host["K"], device=dev)
     fxb = K[:, 0, 0] * cfg32.stereo_baseline / 4
-    warped_s, _ = ops.stereo_warp_chw(img, depth, fxb, dmax=stereo_dmax(cfg32, 152))
+    dmax = stereo_dmax(cfg32, 152)
     T = se3.exp(torch.tensor([[0.02, 0.0, -0.3, 0.0, 0.01, 0.0]] * 2, device=dev,
                              requires_grad=True))
-    warped_g, _ = ops.frozen_warp_chw(img, depth, T, K, pad_v=cfg32.warp_pad_v)
-    if warped_s.grad_fn is None or warped_g.grad_fn is None:
+    warped = [ops.stereo_warp_chw(img, depth, fxb, dmax=dmax)[0],
+              ops.frozen_warp_chw(img, depth, T, K, pad_v=cfg32.warp_pad_v)[0]]
+    if any(w.grad_fn is None for w in warped):
         raise AssertionError("a warp's output on the card carries no grad_fn")
-    out["grad_fn"] = {"stereo": type(warped_s.grad_fn).__name__,
-                      "general": type(warped_g.grad_fn).__name__,
-                      "finest_head_grad_max": float(head.abs().max()),
-                      "odom_grad_min_max": min(float(g.abs().max()) for g in odom)}
+    out["grad_fn"] = {name: type(w.grad_fn).__name__ for name, w in
+                      zip(("stereo", "general"), warped)}
+    out["grad_fn"] |= {"finest_head_grad_max": float(head.abs().max()),
+                       "odom_grad_min_max": min(float(g.abs().max()) for g in odom)}
     del models, metrics, head, odom
 
     # (2) One step on the card against the same step on the CPU.
@@ -738,6 +801,11 @@ def main() -> int:
         ("gen_bwd_uv", f"{pallas}:651"),
     ):
         mine = [r for r in rows if r["kernel"] == kernel]
+        grouped = [r for r in mine if r.get("pyramid")]
+        # Per step or batch of the main path: the grouped launch where the
+        # path makes one (beside its segments' one-segment launches timed
+        # together), else one launch at each shape, summed.
+        timed = grouped or mine
         summary.append({
             "name": kernel, "route": "cuda",
             "source": "depthvo_tpu_torch/ops/csrc/warp.cu", "replaces": replaces,
@@ -747,14 +815,14 @@ def main() -> int:
             # backward recomputes the factors in gen_bwd_uv); the main
             # path launches neither.
             "path": "cli train", "launches": train_launches[kernel],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            # Per step or batch of the main path: one launch at each shape.
-            "ms": sum(r["ms"] for r in mine),
-            "plain_ms": sum(r["plain_ms"] for r in mine),
-            "bound_ms": sum(r["bound_ms"] for r in mine),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in mine) else "operations",
-            "library_ms": sum(r["library_ms"] for r in mine),
-        })
+            "max_abs_err": max(max(r["max_abs_err"], r.get("ragged_max_abs_err", 0.0))
+                               for r in mine),
+            "ms": sum(r["ms"] for r in timed),
+            "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed) else "operations",
+            "library_ms": sum(r["library_ms"] for r in timed),
+        } | ({"per_scale_ms": grouped[0]["per_scale_ms"]} if grouped else {}))
     print(smi, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,21 +18,38 @@
 // byte of float32 balance, so the floor is reading the inputs and writing
 // the outputs once at 3.35 TB/s.
 //
-// Design. The TPU kernels are shaped by Mosaic's one-axis in-vreg gather:
-// 128-lane blocks, 8-row tiles, a source-row window and per-row candidate
+// The TPU kernels are shaped by Mosaic's one-axis in-vreg gather: 128-lane
+// blocks, 8-row tiles, a source-row window and per-row candidate
 // enumeration with rolls. None of that is carried over; only the function
-// is. One thread computes one output pixel:
-//   * threadIdx.x runs along W, so the loads of u/v and the stores of out
-//     are coalesced;
-//   * the thread computes its clipped coordinates, tap indices and weights
-//     once, then loops over the C channels (the TPU kernel hoists the same
-//     channel-independent work out of its channel loop);
-//   * the source taps are gathers, served mostly from the 50 MB L2: the
-//     taps of neighbouring threads lie in the same or adjacent rows.
-// (H <= 65535 and B <= 65535: grid y/z limits.)
-// The window limits of the TPU kernel (|v - row| within the tile window,
-// |u - col| <= 127) are part of the caller's `valid` mask, not a limit on
-// what this kernel can read.
+// is. The window limits of the TPU kernel (|v - row| within the tile
+// window, |u - col| <= 127) are part of the caller's `valid` mask, not a
+// limit on what these kernels can read.
+//
+// The forwards (stereo_fwd, gen_fwd). The loss warps every scale of its
+// pyramid, and all scales' inputs exist before the first warp, so one
+// launch takes a table of up to kMaxSegments segments: each segment is one
+// (src, u[, v], out) with its own B, C, H, W, passed by value as a
+// __grid_constant__ kernel parameter. The grid is one 1-D run of blocks
+// over all segments' pixels; a block finds its segment by comparing its
+// index with the segments' block ends. What held the one-launch-per-scale
+// design back (PERF.md): each launch cost ~3 us at the coarse scales
+// whatever its size (six of the eight forward launches of a step), an
+// early `return` at the ragged row edge, and one channel's gathers in
+// flight at a time. So:
+//   * the pixels of a segment are indexed flat over B H W, kPix per
+//     thread, pixel k of a lane kWarp k pixels after its first, so every
+//     load, gather row and store of a warp is coalesced and the only
+//     ragged edge is the end of a segment, where threads compute the last
+//     pixel again and store nothing (no early return);
+//   * the taps of kChan channels are loaded before any is combined or
+//     stored: 12 (stereo) or 16 (general) gathers of a thread in flight;
+//   * a pixel keeps at most 6 registers (out offset, first tap, tap steps,
+//     weights), so a thread fits 64 registers without spilling.
+// Alternatives tried (PERF.md, Findings): 4 adjacent pixels per thread with
+// float4 maps, and 4 lane-strided pixels, were no faster at the general
+// warp's finest (C=19) segment, or spilled registers. The grouped launch
+// runs at about the rate of a device copy moving the same bytes
+// (chip_smoke.py's copy_ms), below the 3.35 TB/s of the bound.
 //
 // The backwards:
 //   * stereo_bwd_u: one thread per output pixel recomputes the forward's
@@ -70,6 +87,10 @@
 //     fills and sums in turn, so the block's time is the sum of those
 //     latencies, set by its slowest thread: every row has a left-edge
 //     pixel that sums one tap per output clipped there.
+//   * Each backward launch takes one (B,C,H,W) problem (the caller loops
+//     over the pyramid's scales), one thread per output pixel or, for
+//     stereo_bwd_src, per source pixel (H <= 65535 and B <= 65535: grid
+//     y/z limits).
 //
 // Rounding. Every lerp is evaluated as (1 - a) * s0 + a * s1 with each
 // operation rounded on its own (__fmul_rn / __fadd_rn forbid FMA
@@ -85,6 +106,15 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+// The forwards' layout; depthvo_fwd_layout reports it, and the Python
+// side refuses to load a library whose layout its packing does not match.
+constexpr int kMaxSegments = 8;
+constexpr int kFwdThreads = 128;
+constexpr int kPix = 2;  // pixels per forward thread
+constexpr int kFwdMinBlocks = 8;  // resident forward blocks per SM (64 registers)
+constexpr int kStereoChan = 3;  // stereo channels whose taps are loaded together
+constexpr int kGenChan = 2;  // general-warp channels whose taps are loaded together
 
 __device__ __forceinline__ float lerp_rn(float a, float s0, float s1) {
   return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, a), s0), __fmul_rn(a, s1));
@@ -99,26 +129,113 @@ __device__ __forceinline__ void stereo_tap(float u, int W, int& x0, float& au) {
   au = __fsub_rn(uc, u0f);
 }
 
-// out[b,c,i,j] = (1-au) src[b,c,i,u0] + au src[b,c,i,min(u0+1,W-1)],
-// u clipped to [0, W-1]. src (B,C,H,W), u (B,H,W), out (B,C,H,W).
-__global__ void __launch_bounds__(kThreads)
-stereo_fwd_kernel(const float* __restrict__ src, const float* __restrict__ u,
-                  float* __restrict__ out, int C, int H, int W) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= W) return;
-  const int i = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t HW = static_cast<size_t>(H) * W;
-  const size_t row = static_cast<size_t>(b) * C * HW + static_cast<size_t>(i) * W;
+// One segment of a forward launch: src, out (and the factors s_aux, d_aux
+// of gen_fwd's aux mode) (B,C,H,W), u and v (B,H,W); v, s_aux and d_aux
+// are null where unused. `pixels` = B H W.
+struct Segment {
+  const float* src;
+  const float* u;
+  const float* v;
+  float* out;
+  float* s_aux;
+  float* d_aux;
+  int C, H, W;
+  int pixels;
+};
 
-  int x0;
-  float au;
-  stereo_tap(u[(static_cast<size_t>(b) * H + i) * W + j], W, x0, au);
-  const int x1 = min(x0 + 1, W - 1);
+// The launch's segments and, for each, one past its last block; the
+// blocks of segment s are [block_end[s-1], block_end[s]) (from 0 for s=0).
+struct SegmentTable {
+  Segment seg[kMaxSegments];
+  int block_end[kMaxSegments];
+  int n;
+};
 
-  for (int c = 0; c < C; ++c) {
-    const float* r = src + row + c * HW;
-    out[row + c * HW + j] = lerp_rn(au, __ldg(r + x0), __ldg(r + x1));
+// The segment of this block, and the thread's first pixel q0 in the
+// segment's flat run of B H W pixels (b H W + p, p within the H W plane):
+// a warp takes kPix kWarp consecutive pixels, pixel k of a thread is
+// q0 + k kWarp, so each load and store of a warp is coalesced.
+__device__ __forceinline__ int segment_of(const SegmentTable& t, int& q0) {
+  const int blk = blockIdx.x;
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k + 1 < kMaxSegments; ++k) s += (k + 1 < t.n && blk >= t.block_end[k]) ? 1 : 0;
+  const int first = s == 0 ? 0 : t.block_end[s - 1];
+  const int g = (blk - first) * kFwdThreads + static_cast<int>(threadIdx.x);
+  const int lane = g % kWarp;
+  q0 = (g - lane) * kPix + lane;
+  return s;
+}
+
+// Pixel k of the thread: its flat index clamped to the segment, the
+// offset b C H W of its image, p, its index in the H W plane, and `out`,
+// its offset in channel 0 of out (-1 past the segment's end: such a pixel
+// is computed again and not stored).
+struct Pixel {
+  int q;
+  int image;
+  int p;
+  int out;
+};
+
+__device__ __forceinline__ Pixel pixel_at(const Segment& sg, int HW, int q) {
+  Pixel px;
+  px.q = min(q, sg.pixels - 1);
+  const int b = px.q / HW;
+  px.image = b * sg.C * HW;
+  px.p = px.q - b * HW;
+  px.out = q < sg.pixels ? px.image + px.p : -1;
+  return px;
+}
+
+// For every segment: out[b,c,i,j] = (1-au) src[b,c,i,u0] + au
+// src[b,c,i,min(u0+1,W-1)], u clipped to [0, W-1]. A thread takes kPix
+// pixels (segment_of; row i = p / W of each) and the taps of kChan
+// channels at a time. Offsets are ints: the wrapper keeps every tensor
+// under 2**31 elements.
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+stereo_fwd_pyramid_kernel(const __grid_constant__ SegmentTable table) {
+  constexpr int kChan = kStereoChan;
+  int q0;
+  const Segment& sg = table.seg[segment_of(table, q0)];
+  const int C = sg.C;
+  const int W = sg.W;
+  const int HW = sg.H * W;
+
+  // Channel 0's out offset and first tap; the second tap is dx (0 or 1)
+  // further on.
+  int o[kPix], t0[kPix], dx[kPix];
+  float au[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const Pixel px = pixel_at(sg, HW, q0 + k * kWarp);
+    int x0;
+    stereo_tap(__ldg(sg.u + px.q), W, x0, au[k]);
+    o[k] = px.out;
+    t0[k] = px.image + px.p - px.p % W + x0;
+    dx[k] = x0 + 1 < W ? 1 : 0;
+  }
+
+  for (int c0 = 0; c0 < C; c0 += kChan) {
+    float s0[kChan][kPix], s1[kChan][kPix];
+#pragma unroll
+    for (int c = 0; c < kChan; ++c) {
+      const float* plane = sg.src + min(c0 + c, C - 1) * HW;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        s0[c][k] = __ldg(plane + t0[k]);
+        s1[c][k] = __ldg(plane + t0[k] + dx[k]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChan; ++c) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if (o[k] >= 0 && c0 + c < C) {
+          sg.out[o[k] + (c0 + c) * HW] = lerp_rn(au[k], s0[c][k], s1[c][k]);
+        }
+      }
+    }
   }
 }
 
@@ -148,40 +265,71 @@ __device__ __forceinline__ GenTaps gen_taps(float u, float v, int H, int W) {
   return t;
 }
 
-// 2-D bilinear sample of a frozen source at (clip(u,0,W-1), clip(v,0,H-1)).
-// With kAux it also writes the gradient factors
+// For every segment: the 2-D bilinear sample of a frozen source at
+// (clip(u,0,W-1), clip(v,0,H-1)). With kAux it also writes the gradient
+// factors
 //   S = d out / d u = (1-av) (s01 - s00) + av (s11 - s10)
 //   D = d out / d v = h1 - h0
 // (the TPU kernel's emit_grad_aux outputs), at (B,C,H,W) without padding.
+// A thread takes kPix pixels (segment_of) and the four taps of kChan
+// channels at a time.
 template <bool kAux>
-__global__ void __launch_bounds__(kThreads)
-gen_fwd_kernel(const float* __restrict__ src, const float* __restrict__ u,
-               const float* __restrict__ v, float* __restrict__ out,
-               float* __restrict__ s_aux, float* __restrict__ d_aux,
-               int C, int H, int W) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= W) return;
-  const int i = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t HW = static_cast<size_t>(H) * W;
-  const size_t pix = (static_cast<size_t>(b) * H + i) * W + j;
-  const size_t batch = static_cast<size_t>(b) * C * HW;
-  const size_t opix = static_cast<size_t>(i) * W + j;
-  const GenTaps t = gen_taps(u[pix], v[pix], H, W);
+__global__ void __launch_bounds__(kFwdThreads, kAux ? kFwdMinBlocks / 2
+                                                    : kFwdMinBlocks)
+gen_fwd_pyramid_kernel(const __grid_constant__ SegmentTable table) {
+  constexpr int kChan = kGenChan;
+  int q0;
+  const Segment& sg = table.seg[segment_of(table, q0)];
+  const int C = sg.C;
+  const int H = sg.H;
+  const int W = sg.W;
+  const int HW = H * W;
 
-  for (int c = 0; c < C; ++c) {
-    const float* p = src + batch + c * HW;
-    const float s00 = __ldg(p + t.t00);
-    const float s01 = __ldg(p + t.t01);
-    const float s10 = __ldg(p + t.t10);
-    const float s11 = __ldg(p + t.t11);
-    const float h0 = lerp_rn(t.au, s00, s01);
-    const float h1 = lerp_rn(t.au, s10, s11);
-    const size_t o = batch + c * HW + opix;
-    out[o] = lerp_rn(t.av, h0, h1);
-    if (kAux) {
-      s_aux[o] = lerp_rn(t.av, __fsub_rn(s01, s00), __fsub_rn(s11, s10));
-      d_aux[o] = __fsub_rn(h1, h0);
+  // Channel 0's out offset and tap (y0, x0); the other taps are dx (0 or
+  // 1) and dy (0 or W) further on.
+  int o[kPix], t00[kPix], dx[kPix], dy[kPix];
+  float au[kPix], av[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const Pixel px = pixel_at(sg, HW, q0 + k * kWarp);
+    const GenTaps t = gen_taps(__ldg(sg.u + px.q), __ldg(sg.v + px.q), H, W);
+    o[k] = px.out;
+    t00[k] = px.image + static_cast<int>(t.t00);
+    dx[k] = static_cast<int>(t.t01 - t.t00);
+    dy[k] = static_cast<int>(t.t10 - t.t00);
+    au[k] = t.au;
+    av[k] = t.av;
+  }
+
+  for (int c0 = 0; c0 < C; c0 += kChan) {
+    float s00[kChan][kPix], s01[kChan][kPix], s10[kChan][kPix], s11[kChan][kPix];
+#pragma unroll
+    for (int c = 0; c < kChan; ++c) {
+      const float* plane = sg.src + min(c0 + c, C - 1) * HW;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        const float* p = plane + t00[k];
+        s00[c][k] = __ldg(p);
+        s01[c][k] = __ldg(p + dx[k]);
+        s10[c][k] = __ldg(p + dy[k]);
+        s11[c][k] = __ldg(p + dy[k] + dx[k]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChan; ++c) {
+      const int plane = (c0 + c) * HW;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if (o[k] < 0 || c0 + c >= C) continue;
+        const float h0 = lerp_rn(au[k], s00[c][k], s01[c][k]);
+        const float h1 = lerp_rn(au[k], s10[c][k], s11[c][k]);
+        sg.out[o[k] + plane] = lerp_rn(av[k], h0, h1);
+        if (kAux) {
+          sg.s_aux[o[k] + plane] =
+              lerp_rn(av[k], __fsub_rn(s01[c][k], s00[c][k]), __fsub_rn(s11[c][k], s10[c][k]));
+          sg.d_aux[o[k] + plane] = __fsub_rn(h1, h0);
+        }
+      }
     }
   }
 }
@@ -417,14 +565,60 @@ dim3 pixel_grid(int B, int H, int W) {
   return dim3((W + kThreads - 1) / kThreads, H, B);
 }
 
+// The fields of one segment in the forwards' host arrays: pointers
+// (src, u, v, out, s_aux, d_aux) and ints (B, C, H, W, block_end), the
+// latter from warp_kernels.pack_segments.
+constexpr int kPtrFields = 6;
+constexpr int kIntFields = 5;
+
+// Copies n segments from the host arrays into a launch's table; false
+// when n is out of range or the blocks do not run on from 0 in order.
+bool fill_table(int n, const void* const* ptrs, const int* ints, SegmentTable& t) {
+  if (n < 1 || n > kMaxSegments) return false;
+  t = SegmentTable{};
+  t.n = n;
+  int end = 0;
+  for (int s = 0; s < n; ++s) {
+    const void* const* p = ptrs + s * kPtrFields;
+    const int* q = ints + s * kIntFields;
+    Segment& sg = t.seg[s];
+    sg.src = static_cast<const float*>(p[0]);
+    sg.u = static_cast<const float*>(p[1]);
+    sg.v = static_cast<const float*>(p[2]);
+    sg.out = static_cast<float*>(const_cast<void*>(p[3]));
+    sg.s_aux = static_cast<float*>(const_cast<void*>(p[4]));
+    sg.d_aux = static_cast<float*>(const_cast<void*>(p[5]));
+    sg.C = q[1];
+    sg.H = q[2];
+    sg.W = q[3];
+    sg.pixels = q[0] * q[2] * q[3];
+    if (q[4] <= end) return false;
+    end = t.block_end[s] = q[4];
+  }
+  return true;
+}
+
 }  // namespace
+
+// The forwards' launch layout: (kMaxSegments, kFwdThreads, kPix), which
+// warp_kernels.pack_segments must use for the block ends it passes.
+extern "C" void depthvo_fwd_layout(int* out) {
+  out[0] = kMaxSegments;
+  out[1] = kFwdThreads;
+  out[2] = kPix;
+}
 
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError() (0 on success); the Python wrapper raises otherwise.
-extern "C" int depthvo_stereo_fwd(const float* src, const float* u, float* out,
-                                  int B, int C, int H, int W, void* stream) {
-  stereo_fwd_kernel<<<pixel_grid(B, H, W), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(src, u, out, C, H, W);
+
+// One launch over n segments (1 <= n <= kMaxSegments), laid out as
+// fill_table reads them.
+extern "C" int depthvo_stereo_fwd(int n, const void* const* ptrs, const int* ints,
+                                  void* stream) {
+  SegmentTable t;
+  if (!fill_table(n, ptrs, ints, t)) return static_cast<int>(cudaErrorInvalidValue);
+  stereo_fwd_pyramid_kernel<<<t.block_end[n - 1], kFwdThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -459,16 +653,16 @@ extern "C" int depthvo_stereo_bwd_src(const float* g, const float* u,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int depthvo_gen_fwd(const float* src, const float* u, const float* v,
-                               float* out, float* s_aux, float* d_aux,
-                               int B, int C, int H, int W, void* stream) {
+// As depthvo_stereo_fwd; `aux` nonzero also writes the factors S and D.
+extern "C" int depthvo_gen_fwd(int n, const void* const* ptrs, const int* ints, int aux,
+                               void* stream) {
+  SegmentTable t;
+  if (!fill_table(n, ptrs, ints, t)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s_aux != nullptr && d_aux != nullptr) {
-    gen_fwd_kernel<true><<<pixel_grid(B, H, W), kThreads, 0, st>>>(
-        src, u, v, out, s_aux, d_aux, C, H, W);
+  if (aux) {
+    gen_fwd_pyramid_kernel<true><<<t.block_end[n - 1], kFwdThreads, 0, st>>>(t);
   } else {
-    gen_fwd_kernel<false><<<pixel_grid(B, H, W), kThreads, 0, st>>>(
-        src, u, v, out, nullptr, nullptr, C, H, W);
+    gen_fwd_pyramid_kernel<false><<<t.block_end[n - 1], kFwdThreads, 0, st>>>(t);
   }
   return static_cast<int>(cudaGetLastError());
 }

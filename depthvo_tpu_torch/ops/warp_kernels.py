@@ -5,7 +5,8 @@ Five kernels, each a hand-written CUDA kernel (``csrc/warp.cu``) with a
 plain PyTorch version of the same function beside it:
 
 * ``stereo_fwd`` (replaces ``_stereo_fwd_kernel``): the rectified-stereo
-  warp, a horizontal-only bilinear resample of each source row.
+  warp, a horizontal-only bilinear resample of each source row, over up
+  to :data:`MAX_SEGMENTS` segments (the pyramid's scales) in one launch.
 * ``stereo_bwd_u`` (replaces ``_stereo_bwd_u_kernel``): its gradient with
   respect to the sample column u, d_u = sum_c g * (s1 - s0).
 * ``stereo_bwd_src`` (replaces ``_stereo_bwd_src_kernel``): its gradient
@@ -14,7 +15,8 @@ plain PyTorch version of the same function beside it:
   dropped, as in the reference's shift sum.
 * ``gen_fwd`` (replaces ``_gen_fwd_kernel``): the general warp of a
   frozen source, a 2-D bilinear sample, optionally with the gradient
-  factors S = d out / d u and D = d out / d v.
+  factors S = d out / d u and D = d out / d v; grouped like
+  ``stereo_fwd``.
 * ``gen_bwd_uv`` (replaces ``_gen_sample_chw_bwd``'s contraction of those
   factors): d_u = sum_c g * S, d_v = sum_c g * D, with the taps and the
   factors recomputed from the source.
@@ -26,12 +28,19 @@ gradient factors counts as ``gen_fwd_aux``).
 
 Two ``torch.autograd.Function``s sit where the reference puts its custom
 VJPs, so autograd on either device runs the same backward contract:
-:class:`StereoSample` (``_stereo_sample_chw``: forward K1, backward K2 and,
-when the source needs a gradient, K3) and :class:`FrozenGenSample`
-(``_gen_sample_chw``: forward K4, backward ``gen_bwd_uv`` from the saved
-source, no source gradient). Gradients go
-to the unclipped coordinates with no clip derivative, as in the
-reference.
+:class:`StereoSample` (``_stereo_sample_chw``: backward K2 and, when the
+source needs a gradient, K3) and :class:`FrozenGenSample`
+(``_gen_sample_chw``: backward ``gen_bwd_uv`` from the saved source, no
+source gradient). Each holds one scale around a forward already made by
+:func:`stereo_sample_grouped` / :func:`frozen_gen_sample_grouped`, which
+launch K1 or K4 once over all scales and hand back, per scale, a call
+that makes that scale's gradient node. Autograd runs a node after every
+node made later, so a caller that makes each scale's node where it
+builds that scale's loss gets each backward, and the release of its
+cotangent, right after that scale's loss terms, as with one launch per
+scale. A single scale is a group of one.
+Gradients go to the unclipped coordinates with no clip derivative, as in
+the reference.
 
 The masks follow the reference's kernel path: ``valid`` of the general
 warp includes the TPU kernel's reach (``window_mask``: the 8-row tile
@@ -44,6 +53,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -56,6 +66,11 @@ LANE = 128  # the reference kernel's lane block; |u - col| <= LANE - 1
 GEN_PAD_V = 16  # default vertical half-window (rows, a multiple of 8)
 # stereo_bwd_src stages 44 W bytes per row in shared memory (227 KB a block)
 MAX_BWD_SRC_WIDTH = 5120
+# The forwards' launch table; the library checks them against its own
+# (csrc/warp.cu kMaxSegments, kFwdThreads, kPix) when it loads.
+MAX_SEGMENTS = 8
+FWD_THREADS = 128
+FWD_PIX = 2
 
 # Launches per (kernel name, src shape); only the CUDA wrappers count,
 # where they launch.
@@ -76,16 +91,24 @@ def _kernels() -> ctypes.CDLL:
     """The built ``warp.cu`` library with its C signatures declared."""
     lib = _build.load("warp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.depthvo_stereo_fwd.argtypes = [p, p, p, i, i, i, i, p]
+    lib.depthvo_stereo_fwd.argtypes = [i, p, p, p]
     lib.depthvo_stereo_fwd.restype = i
     lib.depthvo_stereo_bwd_u.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.depthvo_stereo_bwd_u.restype = i
     lib.depthvo_stereo_bwd_src.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.depthvo_stereo_bwd_src.restype = i
-    lib.depthvo_gen_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.depthvo_gen_fwd.argtypes = [i, p, p, i, p]
     lib.depthvo_gen_fwd.restype = i
     lib.depthvo_gen_bwd_uv.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.depthvo_gen_bwd_uv.restype = i
+    lib.depthvo_fwd_layout.argtypes = [p]
+    lib.depthvo_fwd_layout.restype = None
+    layout = (ctypes.c_int * 3)()
+    lib.depthvo_fwd_layout(layout)
+    if tuple(layout) != (MAX_SEGMENTS, FWD_THREADS, FWD_PIX):
+        raise RuntimeError(f"warp.cu lays out the forwards as (segments, threads, pixels) = "
+                           f"{tuple(layout)}; pack_segments assumes "
+                           f"{(MAX_SEGMENTS, FWD_THREADS, FWD_PIX)}")
     return lib
 
 
@@ -125,6 +148,71 @@ def n_shifts(dmax: int | None, W: int) -> int:
 
 
 # --------------------------------------------------------------------------
+# The forwards' launch table: one launch over the segments of a pyramid.
+# --------------------------------------------------------------------------
+
+
+class SegmentPlan(NamedTuple):
+    """Where one segment of a forward launch lies in its 1-D grid: its
+    B*H*W pixels, :data:`FWD_PIX` per thread and :data:`FWD_THREADS`
+    threads per block, take blocks ``[block_begin, block_end)``. Warp w of
+    the segment takes its pixels ``[32 FWD_PIX w, 32 FWD_PIX (w + 1))``,
+    pixel k of a lane the k-th run of 32 (``csrc/warp.cu``,
+    ``segment_of``)."""
+
+    B: int
+    C: int
+    H: int
+    W: int
+    block_begin: int
+    block_end: int
+
+
+def pack_segments(shapes: Sequence[tuple]) -> list[SegmentPlan]:
+    """The launch table of ``stereo_fwd``/``gen_fwd`` for segments of
+    (B, C, H, W) ``shapes``, in order."""
+    if not 1 <= len(shapes) <= MAX_SEGMENTS:
+        raise ValueError(f"a forward launch takes 1 to {MAX_SEGMENTS} segments, "
+                         f"got {len(shapes)}")
+    plans, begin = [], 0
+    for k, (B, C, H, W) in enumerate(shapes):
+        if min(B, C, H, W) < 1:
+            raise ValueError(f"segment {k} is empty: {(B, C, H, W)}")
+        end = begin - (-(B * H * W) // (FWD_THREADS * FWD_PIX))
+        plans.append(SegmentPlan(B, C, H, W, begin, end))
+        begin = end
+    if begin >= 2**31:
+        raise ValueError(f"{begin} blocks; a launch takes < 2**31")
+    return plans
+
+
+def _check_segments(srcs, *maps) -> list[SegmentPlan]:
+    """Checks the segments of a grouped CUDA wrapper as :func:`_check_cuda`
+    does, all on the first source's device; returns their launch table."""
+    if any(len(m) != len(srcs) for m in maps):
+        raise ValueError("every segment needs its source and its coordinate maps")
+    plans = pack_segments([tuple(_check_src(s, f"src[{k}]")) for k, s in enumerate(srcs)])
+    device = srcs[0].device
+    for k, (src, pl) in enumerate(zip(srcs, plans)):
+        _check_cuda(f"src[{k}]", src, tuple(src.shape), device)
+        for name, m in zip("uv", maps):
+            _check_cuda(f"{name}[{k}]", m[k], (pl.B, pl.H, pl.W), device)
+    return plans
+
+
+def _launch_fwd(name: str, fn, plans, srcs, us, vs, outs, s_auxs, d_auxs, *flags) -> None:
+    """One grouped forward launch: packs the segments' pointers and plans
+    into the host arrays ``csrc/warp.cu``'s ``fill_table`` reads, and
+    counts it in :data:`LAUNCHES` under the segments' shapes."""
+    ptrs = [None if t is None else t.data_ptr()
+            for row in zip(srcs, us, vs, outs, s_auxs, d_auxs) for t in row]
+    ints = [x for pl in plans for x in (pl.B, pl.C, pl.H, pl.W, pl.block_end)]
+    _launch(name, fn, len(plans), (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints), *flags, _stream(srcs[0].device))
+    LAUNCHES[(name, tuple(tuple(s.shape) for s in srcs))] += 1
+
+
+# --------------------------------------------------------------------------
 # K1: stereo forward.
 # --------------------------------------------------------------------------
 
@@ -150,25 +238,31 @@ def stereo_sample_plain(src: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return (1.0 - au) * s0 + au * s1
 
 
+def stereo_sample_pyramid_cuda(srcs: Sequence[torch.Tensor],
+                               us: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Launch ``stereo_fwd`` (csrc/warp.cu) once over the segments
+    (srcs[k], us[k]), up to :data:`MAX_SEGMENTS`. Raises on anything the
+    kernel does not take or when the launch fails; never falls back."""
+    plans = _check_segments(srcs, us)
+    outs = [torch.empty_like(s) for s in srcs]
+    none = [None] * len(srcs)
+    _launch_fwd("stereo_fwd", _kernels().depthvo_stereo_fwd, plans, srcs, us, none, outs,
+                none, none)
+    return outs
+
+
 def stereo_sample_cuda(src: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Launch ``stereo_fwd`` (csrc/warp.cu). Raises on anything the kernel
-    does not take or when the launch fails; never falls back."""
-    B, C, H, W = _check_src(src)
-    _check_cuda("src", src, (B, C, H, W), src.device)
-    _check_cuda("u", u, (B, H, W), src.device)
-    out = torch.empty_like(src)
-    _launch("stereo_fwd", _kernels().depthvo_stereo_fwd,
-            src.data_ptr(), u.data_ptr(), out.data_ptr(), B, C, H, W,
-            _stream(src.device))
-    LAUNCHES[("stereo_fwd", (B, C, H, W))] += 1
-    return out
+    """``stereo_fwd`` on one segment."""
+    return stereo_sample_pyramid_cuda([src], [u])[0]
 
 
-def stereo_sample(src: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """K1 on the tensor's device: plain version on the CPU, kernel on CUDA."""
-    if src.device.type == "cpu":
-        return stereo_sample_plain(src, u)
-    return stereo_sample_cuda(src, u)
+def stereo_sample_pyramid(srcs: Sequence[torch.Tensor],
+                          us: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """K1 over a pyramid on the tensors' device: the plain version per
+    segment on the CPU, one kernel launch on CUDA."""
+    if srcs[0].device.type == "cpu":
+        return [stereo_sample_plain(s, u) for s, u in zip(srcs, us)]
+    return stereo_sample_pyramid_cuda(srcs, us)
 
 
 # --------------------------------------------------------------------------
@@ -262,16 +356,34 @@ def stereo_bwd_src(g: torch.Tensor, u: torch.Tensor, dmax: int | None) -> torch.
     return stereo_bwd_src_cuda(g, u, dmax)
 
 
+def _taken_once(items, make) -> list[Callable[[], torch.Tensor]]:
+    """Per item k, a call that returns ``make(*items[k])`` and lets go of
+    the item: once a scale's output is taken, what it held (the output
+    itself, its source and coordinates) lives only as long as the caller's
+    graph needs it, as with one launch per scale."""
+    items = list(items)
+
+    def take(k):
+        item, items[k] = items[k], None
+        if item is None:
+            raise RuntimeError(f"the grouped sample's scale {k} was taken already")
+        return make(*item)
+
+    return [functools.partial(take, k) for k in range(len(items))]
+
+
 class StereoSample(torch.autograd.Function):
-    """``_stereo_sample_chw``'s custom VJP: ``apply(src, u, dmax)``, src
-    (B,C,H,W), u (B,H,W), ``dmax`` not differentiable. Forward K1;
-    backward K2 for u and, only when the source needs a gradient, K3."""
+    """``_stereo_sample_chw``'s custom VJP for one scale whose forward is
+    already made: ``apply(src, u, dmax, out)`` with out = K1(src, u)
+    returns ``out``; src (B,C,H,W), u (B,H,W), ``dmax`` and ``out`` not
+    differentiable. Backward K2 for u and, only when the source needs a
+    gradient, K3. Made by :func:`stereo_sample_grouped`."""
 
     @staticmethod
-    def forward(ctx, src, u, dmax):
+    def forward(ctx, src, u, dmax, out):
         ctx.dmax = dmax
         ctx.save_for_backward(src, u)
-        return stereo_sample(src, u)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -279,7 +391,18 @@ class StereoSample(torch.autograd.Function):
         g = g.contiguous()
         d_src = stereo_bwd_src(g, u, ctx.dmax) if ctx.needs_input_grad[0] else None
         d_u = stereo_bwd_u(src, g, u) if ctx.needs_input_grad[1] else None
-        return d_src, d_u, None
+        return d_src, d_u, None, None
+
+
+def stereo_sample_grouped(srcs: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
+                          dmaxs: Sequence) -> list[Callable[[], torch.Tensor]]:
+    """K1 of each scale k (``srcs[k]``, ``us[k]``; ``dmaxs[k]`` bounds K3)
+    in one grouped forward launch, made now. Item k of the result is a
+    call, to be made once, that returns scale k's output behind its own
+    :class:`StereoSample`."""
+    with torch.no_grad():
+        outs = stereo_sample_pyramid(srcs, us)
+    return _taken_once(zip(srcs, us, dmaxs, outs), StereoSample.apply)
 
 
 # --------------------------------------------------------------------------
@@ -328,32 +451,37 @@ def gen_sample_plain(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return out, s_aux, h1 - h0
 
 
+def gen_sample_pyramid_cuda(srcs: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
+                            vs: Sequence[torch.Tensor], emit_grad_aux: bool = False) -> list:
+    """Launch ``gen_fwd`` (csrc/warp.cu) once over the segments (srcs[k],
+    us[k], vs[k]), up to :data:`MAX_SEGMENTS`: a list of the warped
+    sources, or of (out, S, D) with ``emit_grad_aux``. Raises on anything
+    the kernel does not take or when the launch fails; never falls back."""
+    plans = _check_segments(srcs, us, vs)
+    outs = [torch.empty_like(s) for s in srcs]
+    if emit_grad_aux:
+        s_auxs = [torch.empty_like(s) for s in srcs]
+        d_auxs = [torch.empty_like(s) for s in srcs]
+    else:
+        s_auxs = d_auxs = [None] * len(srcs)
+    _launch_fwd("gen_fwd_aux" if emit_grad_aux else "gen_fwd", _kernels().depthvo_gen_fwd,
+                plans, srcs, us, vs, outs, s_auxs, d_auxs, int(emit_grad_aux))
+    return list(zip(outs, s_auxs, d_auxs)) if emit_grad_aux else outs
+
+
 def gen_sample_cuda(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                     emit_grad_aux: bool = False):
-    """Launch ``gen_fwd`` (csrc/warp.cu). Raises on anything the kernel
-    does not take or when the launch fails; never falls back."""
-    B, C, H, W = _check_src(src)
-    _check_cuda("src", src, (B, C, H, W), src.device)
-    _check_cuda("u", u, (B, H, W), src.device)
-    _check_cuda("v", v, (B, H, W), src.device)
-    out = torch.empty_like(src)
-    s_aux = torch.empty_like(src) if emit_grad_aux else None
-    d_aux = torch.empty_like(src) if emit_grad_aux else None
-    _launch("gen_fwd", _kernels().depthvo_gen_fwd,
-            src.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-            s_aux.data_ptr() if emit_grad_aux else None,
-            d_aux.data_ptr() if emit_grad_aux else None,
-            B, C, H, W, _stream(src.device))
-    LAUNCHES[("gen_fwd_aux" if emit_grad_aux else "gen_fwd", (B, C, H, W))] += 1
-    return (out, s_aux, d_aux) if emit_grad_aux else out
+    """``gen_fwd`` on one segment."""
+    return gen_sample_pyramid_cuda([src], [u], [v], emit_grad_aux)[0]
 
 
-def gen_sample(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K4 (without the factors) on the tensor's device: plain version on
-    the CPU, kernel on CUDA."""
-    if src.device.type == "cpu":
-        return gen_sample_plain(src, u, v)
-    return gen_sample_cuda(src, u, v)
+def gen_sample_pyramid(srcs: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
+                       vs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """K4 (without the factors) over a pyramid on the tensors' device: the
+    plain version per segment on the CPU, one kernel launch on CUDA."""
+    if srcs[0].device.type == "cpu":
+        return [gen_sample_plain(s, u, v) for s, u, v in zip(srcs, us, vs)]
+    return gen_sample_pyramid_cuda(srcs, us, vs)
 
 
 def gen_bwd_uv_plain(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
@@ -399,24 +527,37 @@ def gen_bwd_uv(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor, v: torch.Ten
 
 
 class FrozenGenSample(torch.autograd.Function):
-    """``_gen_sample_chw``'s custom VJP: ``apply(src, u, v)`` with a frozen
-    src (it gets no gradient). The forward is plain K4; when u or v needs
-    a gradient it saves (src, u, v), and the backward recomputes the taps
-    in ``gen_bwd_uv``: d_u = sum_c g * S, d_v = sum_c g * D. The
-    reference's forward emits S and D instead; the gradient is the same."""
+    """``_gen_sample_chw``'s custom VJP for one scale whose forward is
+    already made: ``apply(src, u, v, out)`` with out = K4(src, u, v)
+    returns ``out``; src is frozen (it gets no gradient). When u or v
+    needs a gradient it saves (src, u, v), and the backward recomputes the
+    taps in ``gen_bwd_uv``: d_u = sum_c g * S, d_v = sum_c g * D. The
+    reference's forward emits S and D instead; the gradient is the same.
+    Made by :func:`frozen_gen_sample_grouped`."""
 
     @staticmethod
-    def forward(ctx, src, u, v):
+    def forward(ctx, src, u, v, out):
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             ctx.save_for_backward(src, u, v)
-        return gen_sample(src, u, v)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         src, u, v = ctx.saved_tensors
         d_u, d_v = gen_bwd_uv(src, g.contiguous(), u, v)
         return (None, d_u if ctx.needs_input_grad[1] else None,
-                d_v if ctx.needs_input_grad[2] else None)
+                d_v if ctx.needs_input_grad[2] else None, None)
+
+
+def frozen_gen_sample_grouped(srcs: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
+                              vs: Sequence[torch.Tensor]) -> list[Callable[[], torch.Tensor]]:
+    """K4 of each scale k (frozen ``srcs[k]`` at ``us[k]``, ``vs[k]``) in
+    one grouped forward launch, made now. Item k of the result is a call,
+    to be made once, that returns scale k's output behind its own
+    :class:`FrozenGenSample`."""
+    with torch.no_grad():
+        outs = gen_sample_pyramid(srcs, us, vs)
+    return _taken_once(zip(srcs, us, vs, outs), FrozenGenSample.apply)
 
 
 # --------------------------------------------------------------------------
@@ -458,18 +599,6 @@ def _gen_warp_prep(depth, T, K, H: int, W: int, pad_v: int):
     return u, v, valid
 
 
-def general_warp_frozen_src_chw(src_chw: torch.Tensor, depth, T, K,
-                                pad_v: int = GEN_PAD_V):
-    """General inverse warp of a frozen (B,C,H,W) source through K4
-    (:class:`FrozenGenSample`: gradients reach depth, T and K through
-    (u, v), none reaches the source). Returns (warped (B,C,H,W) float32,
-    valid (B,H,W))."""
-    B, C, H, W = src_chw.shape
-    u, v, valid = _gen_warp_prep(depth, T, K, H, W, pad_v)
-    warped = FrozenGenSample.apply(src_chw.detach().float().contiguous(), u, v)
-    return warped, valid
-
-
 def stereo_disparity_u(depth: torch.Tensor, fx_baseline, W: int):
     """``disparity = fx*b / depth`` and the sample column ``u = col - disparity``."""
     if depth.ndim == 4:
@@ -491,17 +620,11 @@ def stereo_valid_mask(depth, disparity, u, H: int, W: int, dmax) -> torch.Tensor
     return valid
 
 
-def stereo_warp_chw(src_chw: torch.Tensor, depth: torch.Tensor, fx_baseline,
-                    dmax: int = 128):
-    """Rectified-stereo inverse warp of a (B,C,H,W) source through
-    :class:`StereoSample` (K1; K2 and K3 in the backward): samples at
-    u = col - fx*b/depth. ``dmax`` is the static disparity bound in pixels
-    (derive it with ``configs.base.stereo_dmax``; ``None`` drops the
-    bound). Returns (warped, valid (B,H,W))."""
-    B, C, H, W = src_chw.shape
+def stereo_warp_prep(hw, depth: torch.Tensor, fx_baseline, dmax):
+    """Sample columns and validity of the stereo warp at (H, W) ``hw``:
+    (u contiguous, valid)."""
+    H, W = hw
     if depth.ndim == 4:
         depth = depth[..., 0]
     disparity, u = stereo_disparity_u(depth, fx_baseline, W)
-    valid = stereo_valid_mask(depth, disparity, u, H, W, dmax)
-    warped = StereoSample.apply(src_chw.float().contiguous(), u.contiguous(), dmax)
-    return warped, valid
+    return u.contiguous(), stereo_valid_mask(depth, disparity, u, H, W, dmax)

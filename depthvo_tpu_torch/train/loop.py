@@ -14,13 +14,17 @@ Loss graph (full variant; the config's switches select the stage):
   finest scale only:
     temporal + feature: one warp of [I_s, F(I_s)]      -> masked L1  (K4, C=3+16)
 
+The warps of all scales run as one grouped launch per forward kernel (one
+K1 over the stereo scales, one K4 over the temporal scales and the fused
+payload); the losses then add up per scale in the reference's order.
 Images are NHWC in [-1, 1] (or raw uint8) at the entry, as in the
 reference; the photometric region runs in the kernels' (B, C, H, W)
 layout. In train mode the depth net's BatchNorm uses and updates batch
 statistics, and autograd differentiates the warps through the kernels'
-``autograd.Function``s (``ops/warp_kernels.py``); the sources are data,
-so the stereo backward launches K2 and not K3. The train step is eager:
-one forward, one backward and one solver update per call.
+``autograd.Function``s (``ops/warp_kernels.py``); the backward kernels
+run per scale, and the sources are data, so the stereo backward launches
+K2 and not K3. The train step is eager: one forward, one backward and one
+solver update per call.
 """
 
 from __future__ import annotations
@@ -107,29 +111,66 @@ def compute_losses(config: ExperimentConfig, models: Models,
     def at_scale(img_chw, h, w):
         return img_chw if (h, w) == (H, W) else resize_bilinear_chw(img_chw, h, w)
 
+    # Every scale's inputs first (coarsest -> finest): the warps of all
+    # scales then run as one launch per kernel.
     n_scales = len(disps)
+    hws = [tuple(disp.shape[1:3]) for disp in disps]
+    Kss = [scale_intrinsics(K, w / W, h / H) for h, w in hws]
+    img_ts = [at_scale(image_t_chw, h, w) for h, w in hws]
+    depths = [1.0 / disp[..., 0] for disp in disps]
+
+    # Finest scale: temporal and feature losses sample the source at the
+    # same coordinates, so RGB and features share one 19-channel warp.
+    fused = config.use_temporal and config.use_feature
+    if fused:
+        # The frozen feature net gets no gradient (the reference's
+        # stop_gradient on its parameters): run it without a graph.
+        with contextlib.nullcontext() if config.train_feat else torch.no_grad():
+            feat_t_chw = feat_net.forward_chw(image_t.permute(0, 3, 1, 2)).to(loss_dtype)
+            feat_s_chw = feat_net.forward_chw(
+                batch["image_s"].permute(0, 3, 1, 2)
+            ).to(loss_dtype)
+        depth_full = depths[-1]
+        payload = torch.cat([image_s_chw, feat_s_chw], dim=1)
+
+    # One grouped stereo warp over every scale, one grouped general warp
+    # over the temporal scales and (unless the feature net trains) the
+    # fused finest payload. Each scale's gradient node is made below,
+    # where its loss is, so autograd runs it right after that loss's
+    # backward, as with one warp launch per scale.
+    if config.use_stereo:
+        stereo = ops.stereo_warp_pyramid_chw(
+            [at_scale(image_r_chw, h, w) for h, w in hws], depths,
+            [Ks[..., 0, 0] * baseline for Ks in Kss],
+            [config_base.stereo_dmax(config, w) for _, w in hws],
+        )
+    temporal_scales = [i for i, hw in enumerate(hws)
+                       if config.use_temporal and not (hw == (H, W) and fused)]
+    gen_srcs = [at_scale(image_s_chw, *hws[i]) for i in temporal_scales]
+    gen_depths = [depths[i] for i in temporal_scales]
+    gen_Ks = [Kss[i] for i in temporal_scales]
+    if fused and not config.train_feat:
+        gen_srcs.append(payload)
+        gen_depths.append(depth_full)
+        gen_Ks.append(K)
+    general = (ops.frozen_warp_pyramid_chw(gen_srcs, gen_depths, T_ts, gen_Ks,
+                                           pad_v=config.warp_pad_v)
+               if gen_srcs else [])
+    temporal = dict(zip(temporal_scales, general))
+
+    # The loss terms in the reference's order: coarsest to finest, then
+    # the fused finest warp's temporal term.
     stereo_total = torch.zeros((), device=image_t.device)
     temporal_total = torch.zeros((), device=image_t.device)
     smooth_total = torch.zeros((), device=image_t.device)
-    for i, disp in enumerate(disps):  # coarsest -> finest
-        h, w = disp.shape[1:3]
-        Ks = scale_intrinsics(K, w / W, h / H)
-        img_t = at_scale(image_t_chw, h, w)
-        depth = 1.0 / disp[..., 0]
+    for i, (disp, img_t) in enumerate(zip(disps, img_ts)):
         if config.use_stereo:
-            fxb = Ks[..., 0, 0] * baseline
-            warped, valid = ops.stereo_warp_chw(
-                at_scale(image_r_chw, h, w), depth, fxb,
-                dmax=config_base.stereo_dmax(config, w),
-            )
+            warped, valid = stereo[i]()
             stereo_total = stereo_total + photometric_loss_chw(
                 warped, img_t, valid, config.ssim_weight
             )
-        if config.use_temporal and not ((h, w) == (H, W) and config.use_feature):
-            warped, valid = ops.frozen_warp_chw(
-                at_scale(image_s_chw, h, w), depth, T_ts, Ks,
-                pad_v=config.warp_pad_v,
-            )
+        if i in temporal:
+            warped, valid = temporal[i]()
             temporal_total = temporal_total + photometric_loss_chw(
                 warped, img_t, valid, config.ssim_weight
             )
@@ -138,19 +179,8 @@ def compute_losses(config: ExperimentConfig, models: Models,
             image_layout="chw",
         ) / (2.0 ** (n_scales - 1 - i))
 
-    # Finest scale: temporal and feature losses sample the source at the
-    # same coordinates, so RGB and features share one 19-channel warp.
     feat_loss = None
-    if config.use_temporal and config.use_feature:
-        # The frozen feature net gets no gradient (the reference's
-        # stop_gradient on its parameters): run it without a graph.
-        with contextlib.nullcontext() if config.train_feat else torch.no_grad():
-            feat_t_chw = feat_net.forward_chw(image_t.permute(0, 3, 1, 2)).to(loss_dtype)
-            feat_s_chw = feat_net.forward_chw(
-                batch["image_s"].permute(0, 3, 1, 2)
-            ).to(loss_dtype)
-        depth_full = 1.0 / disps[-1][..., 0]
-        payload = torch.cat([image_s_chw, feat_s_chw], dim=1)
+    if fused:
         if config.train_feat:
             # feat_s carries gradients: the differentiable plain warp
             # (the reference's XLA gather/scatter path, no window term).
@@ -159,9 +189,7 @@ def compute_losses(config: ExperimentConfig, models: Models,
             )
             warped = warped_hwc.permute(0, 3, 1, 2)
         else:
-            warped, valid = ops.frozen_warp_chw(
-                payload, depth_full, T_ts, K, pad_v=config.warp_pad_v
-            )
+            warped, valid = general[-1]()
         temporal_total = temporal_total + photometric_loss_chw(
             warped[:, :3], image_t_chw, valid, config.ssim_weight
         )

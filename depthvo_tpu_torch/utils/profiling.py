@@ -14,12 +14,15 @@ and the busy share of the wall time, kernel launches per step (all
 kernels, and the warp kernels' own counters), the device time by
 category (the warp kernels, convolutions, matrix products, copies, the
 rest), each warp kernel's device time, and the kernels that take the
-most device time. It needs a GPU.
+most device time; then, for one more step with the allocator's history
+on, its peak of allocated bytes and the bytes live at that peak by the
+line of this package that allocated them. It needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import time
 from typing import Dict
@@ -32,8 +35,8 @@ from depthvo_tpu_torch.ops import warp_kernels
 from depthvo_tpu_torch.train import loop
 from depthvo_tpu_torch.train.state import build_models, create_state, init_params, load_params
 
-WARP_KERNELS = ("stereo_fwd_kernel", "stereo_bwd_u_kernel", "stereo_bwd_src_kernel",
-                "gen_fwd_kernel", "gen_bwd_uv_kernel")
+WARP_KERNELS = ("stereo_fwd_pyramid_kernel", "stereo_bwd_u_kernel", "stereo_bwd_src_kernel",
+                "gen_fwd_pyramid_kernel", "gen_bwd_uv_kernel")
 _CATEGORIES = (
     ("warp_kernels", WARP_KERNELS),
     ("memcpy", ("memcpy",)),
@@ -118,10 +121,63 @@ def _trace(run_step, data, top_kernels: int) -> Dict:
     }
 
 
+def _site(frames) -> str:
+    """Where an allocation was made: the innermost frame of this package
+    (this module excluded) in its Python stack."""
+    for f in frames:
+        name = f["filename"]
+        if "depthvo_tpu_torch" in name and not name.endswith("profiling.py"):
+            return f"{name[name.rindex('depthvo_tpu_torch'):]}:{f['line']} {f['name']}"
+    return "(outside depthvo_tpu_torch)"
+
+
+def peak_by_site(events, baseline: int, top: int) -> Dict:
+    """Replay an allocator history (``alloc`` and ``free_requested`` events
+    with addr, size and frames) that starts with ``baseline`` bytes
+    allocated: its peak of allocated bytes and the bytes live at the
+    first such peak by :func:`_site` (blocks allocated before the history
+    under "(before the step)"), the ``top`` largest."""
+    total, peak, at = baseline, baseline, -1
+    for i, e in enumerate(events):
+        if e["action"] in ("alloc", "free_requested"):
+            total += e["size"] if e["action"] == "alloc" else -e["size"]
+            if total > peak:
+                peak, at = total, i
+    live, before = {}, baseline
+    for e in events[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_requested" and live.pop(e["addr"], None) is None:
+            before -= e["size"]
+    sites = collections.Counter({"(before the step)": before})
+    for e in live.values():
+        sites[_site(e["frames"])] += e["size"]
+    return {"peak_bytes": peak, "live_at_peak_by_site": dict(sites.most_common(top))}
+
+
+def _memory(run_step, batch, top: int) -> Dict:
+    """One more ``run_step(batch)`` with the allocator's history on:
+    :func:`peak_by_site` of it, beside the allocator's own peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(stacks="python")
+    try:
+        run_step(batch)
+        torch.cuda.synchronize()
+        events = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    out = peak_by_site(events, baseline, top)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def profile(mode: str, variant: str, batches: int = 5, batch_size: int = 4,
             seed: int = 0, top_kernels: int = 15) -> Dict:
     """Trace ``batches`` train steps (``mode="train"``) or held-out loss
-    passes (``mode="eval"``) on the GPU."""
+    passes (``mode="eval"``) on the GPU, then record the allocations of
+    one more."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile measures the GPU; no CUDA device is available")
     dev = torch.device("cuda")
@@ -146,6 +202,7 @@ def profile(mode: str, variant: str, batches: int = 5, batch_size: int = 4,
     out = {"mode": mode, "variant": variant, "batch": batch_size, "steps": batches,
            "compute_dtype": cfg.model.compute_dtype}
     out.update(_trace(run_step, data, top_kernels))
+    out["memory"] = _memory(run_step, data[0], top_kernels)
     return out
 
 

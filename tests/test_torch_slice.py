@@ -140,9 +140,42 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_profiling_finds_what_is_live_at_the_memory_peak():
+    """The allocator history replay: the peak of allocated bytes, and the
+    bytes live at its first occurrence by the innermost frame of the
+    package; blocks from before the history count under their own name,
+    minus those the step frees."""
+    def frame(path, line):
+        return [{"filename": "/x/torch/functional.py", "line": 1, "name": "f"},
+                {"filename": f"/ck/depthvo_tpu_torch/{path}", "line": line, "name": "g"},
+                {"filename": "/ck/depthvo_tpu_torch/utils/profiling.py", "line": 9, "name": "h"}]
+
+    ev = [
+        {"action": "alloc", "addr": 1, "size": 100, "frames": frame("train/loop.py", 7)},
+        {"action": "free_requested", "addr": 99, "size": 30, "frames": []},  # from before
+        {"action": "alloc", "addr": 2, "size": 50, "frames": frame("ops/warp_kernels.py", 3)},
+        {"action": "free_completed", "addr": 2, "size": 50, "frames": []},  # not counted
+        {"action": "alloc", "addr": 3, "size": 40, "frames": frame("train/loop.py", 7)},
+        {"action": "free_requested", "addr": 2, "size": 50, "frames": []},
+        {"action": "alloc", "addr": 4, "size": 60, "frames": []},
+        {"action": "free_requested", "addr": 1, "size": 100, "frames": []},
+    ]
+    out = profiling.peak_by_site(ev, baseline=1000, top=5)
+    assert out["peak_bytes"] == 1000 - 30 + 100 + 40 + 60
+    assert out["live_at_peak_by_site"] == {
+        "(before the step)": 970, "depthvo_tpu_torch/train/loop.py:7 g": 140,
+        "(outside depthvo_tpu_torch)": 60}
+    assert profiling.peak_by_site([], 10, 5) == {
+        "peak_bytes": 10, "live_at_peak_by_site": {"(before the step)": 10}}
+
+
 def test_profiling_sorts_kernels_and_unions_busy_time():
     assert profiling._busy_us([(0, 2), (1, 3), (5, 6), (5.5, 5.7)]) == 4
-    assert profiling.category("void stereo_fwd_kernel(float const*)") == "warp_kernels"
+    assert profiling.category(
+        "void (anonymous namespace)::stereo_fwd_pyramid_kernel(SegmentTable)") == "warp_kernels"
+    assert profiling.category(
+        "void (anonymous namespace)::gen_fwd_pyramid_kernel<false>(SegmentTable)"
+    ) == "warp_kernels"
     assert profiling.category("sm90_xmma_fprop_implicit_gemm_bf16") == "convolution"
     assert profiling.category("Memcpy HtoD (Pageable -> Device)") == "memcpy"
     assert profiling.category("ampere_bf16_s16816gemm_128x64") == "matmul"

@@ -19,6 +19,7 @@ JAX package.
   CPU, and the entry points refusing to run without a GPU.
 """
 
+import collections
 import dataclasses
 import signal
 
@@ -40,6 +41,7 @@ from depthvo_tpu_torch import cli, configs as tconfigs, ops as tops
 from depthvo_tpu_torch.configs import base as tbase
 from depthvo_tpu_torch.data.synthetic import SyntheticScenes
 from depthvo_tpu_torch.io.from_jax import load_jax_params, params_from_jax, state_dict_from_jax
+from depthvo_tpu_torch.ops import warp_kernels
 from depthvo_tpu_torch.train import loop as tloop, optim, state as tstate
 from test_torch_models import jax_state
 
@@ -315,6 +317,33 @@ def test_overfit_loss_decreases(variant):
     losses = _overfit(cfg)
     assert len(losses) == 12 and np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
+
+
+@pytest.mark.parametrize("mode", ["eval", "train", "train_feat"])
+def test_loss_graph_runs_one_grouped_forward_per_warp_kernel(monkeypatch, mode):
+    """``compute_losses`` warps the whole pyramid with one grouped stereo
+    and one grouped general sample per call; a train step's backward then runs K2 once per scale and gen_bwd_uv
+    once per general segment (one fewer with ``train_feat``, whose fused
+    finest warp is the plain differentiable one), and never K3."""
+    calls = collections.Counter()
+    for name in ("stereo_sample_pyramid", "gen_sample_pyramid", "stereo_bwd_u",
+                 "stereo_bwd_src", "gen_bwd_uv"):
+        real = getattr(warp_kernels, name)
+        monkeypatch.setattr(warp_kernels, name,
+                            lambda *a, _n=name, _f=real: calls.update([_n]) or _f(*a))
+    cfg = tconfigs.tiny_test(train_feat=mode == "train_feat")
+    n = cfg.model.num_scales
+    state = tstate.create_state(cfg, torch.device("cpu"))
+    batch = SyntheticScenes(cfg, seed=3, num_scenes=2).fixed_batch(cfg.batch_size)
+    if mode == "eval":
+        tloop.make_eval_step(cfg, device="cpu")(state.models, batch)
+        assert calls == {"stereo_sample_pyramid": 1, "gen_sample_pyramid": 1}
+        return
+    _, metrics = tloop.make_train_step(cfg, device="cpu")(state, batch)
+    assert np.isfinite(float(metrics["loss/total"]))
+    gen_segments = n - 1 if mode == "train_feat" else n
+    assert calls == {"stereo_sample_pyramid": 1, "gen_sample_pyramid": 1,
+                     "stereo_bwd_u": n, "gen_bwd_uv": gen_segments}
 
 
 def test_train_feat_trains_the_feature_net():

@@ -154,15 +154,124 @@ def test_general_sample_grad_factors_match_pallas(rng, monkeypatch):
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """The CUDA wrappers check their inputs before building or launching
-    anything, and never fall back to the plain versions."""
+    anything, and never fall back to the plain versions: CPU tensors,
+    more than MAX_SEGMENTS segments, a segment without its maps, and a
+    launch that reports an error all raise."""
     src = torch.zeros(1, 3, 8, 16)
     u = torch.zeros(1, 8, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         warp_kernels.stereo_sample_cuda(src, u)
     with pytest.raises(ValueError, match="CUDA tensor"):
         warp_kernels.gen_sample_cuda(src, u, u)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        warp_kernels.stereo_sample_pyramid_cuda([src, src], [u, u])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        warp_kernels.gen_sample_pyramid_cuda([src, src], [u, u], [u, u])
+    n = warp_kernels.MAX_SEGMENTS + 1
+    with pytest.raises(ValueError, match="1 to 8 segments"):
+        warp_kernels.stereo_sample_pyramid_cuda([src] * n, [u] * n)
+    with pytest.raises(ValueError, match="1 to 8 segments"):
+        warp_kernels.gen_sample_pyramid_cuda([src] * n, [u] * n, [u] * n)
+    with pytest.raises(ValueError, match="its coordinate maps"):
+        warp_kernels.gen_sample_pyramid_cuda([src, src], [u, u], [u])
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        warp_kernels._launch("stereo_fwd", lambda *args: 1)
     assert warp_kernels.launch_count("stereo_fwd") == 0
     assert warp_kernels.launch_count("gen_fwd") == 0
+
+
+class _FakeEntry:
+    """A C entry of a fake kernel library: returns 0, and ``fill`` (if
+    any) writes its first argument."""
+
+    def __init__(self, fill=None):
+        self.fill = fill
+
+    def __call__(self, *args):
+        if self.fill:
+            self.fill(args[0])
+        return 0
+
+
+@pytest.mark.parametrize("pix", [warp_kernels.FWD_PIX, warp_kernels.FWD_PIX + 1])
+def test_kernel_library_must_lay_out_the_forwards_as_pack_segments_does(monkeypatch, pix):
+    """The library reports its forward layout when it loads; one that
+    differs from pack_segments' (which would leave pixels unwritten) is
+    refused before any launch."""
+    layout = (warp_kernels.MAX_SEGMENTS, warp_kernels.FWD_THREADS, pix)
+
+    class Lib:
+        depthvo_fwd_layout = _FakeEntry(lambda out: out.__setitem__(slice(0, 3), layout))
+
+        def __getattr__(self, name):
+            setattr(self, name, _FakeEntry())
+            return getattr(self, name)
+
+    monkeypatch.setattr(warp_kernels._build, "load", lambda stem: Lib())
+    warp_kernels._kernels.cache_clear()
+    try:
+        if pix == warp_kernels.FWD_PIX:
+            assert isinstance(warp_kernels._kernels(), Lib)
+        else:
+            with pytest.raises(RuntimeError, match="pack_segments assumes"):
+                warp_kernels._kernels()
+    finally:
+        warp_kernels._kernels.cache_clear()
+
+
+# --------------------------------------------------------------------------
+# The grouped forwards' launch table: every pixel of every segment is
+# stored by exactly one thread of the one launch.
+# --------------------------------------------------------------------------
+
+
+def _stored_pixels(plans):
+    """Flat indices of the pixels stored by the threads of a grouped
+    launch over ``plans``, as ``csrc/warp.cu``'s ``segment_of`` and
+    ``pixel_at`` compute them: the segment by the blocks' ends; then
+    pixel k of a thread is q0 + 32 k in the segment's run of B*H*W
+    pixels, q0 = 32 FWD_PIX (warp) + lane; pixels past the run store
+    nothing. Pixel q of segment s is ``first[s] + q``."""
+    T, P, n = warp_kernels.FWD_THREADS, warp_kernels.FWD_PIX, len(plans)
+    ends = [pl.block_end for pl in plans]
+    blk = np.repeat(np.arange(ends[-1]), T)
+    thread = np.tile(np.arange(T), ends[-1])
+    s = sum(((k + 1 < n) & (blk >= ends[k])).astype(int)
+            for k in range(min(n, warp_kernels.MAX_SEGMENTS - 1)))
+    g = (blk - np.array([0] + ends[:-1])[s]) * T + thread
+    lane = g % 32
+    q0 = (g - lane) * P + lane
+    pixels = np.array([pl.B * pl.H * pl.W for pl in plans])
+    first = np.cumsum([0, *pixels])
+    stored = [(first[s] + q0 + 32 * k)[q0 + 32 * k < pixels[s]] for k in range(P)]
+    return np.concatenate(stored), first[-1]
+
+
+@pytest.mark.parametrize("shapes", [
+    # the full_feat loss pyramid, coarsest first: 76x20 .. 608x160, C=19 finest
+    [(4, 3, 20, 76), (4, 3, 40, 152), (4, 3, 80, 304), (4, 19, 160, 608)],
+    # H*W % 4 = 2 and 1 (a warp's run crosses images), a one-pixel-wide and
+    # a one-pixel segment
+    [(2, 3, 37, 150), (1, 19, 19, 75), (3, 2, 9, 1), (1, 1, 1, 1)],
+    [(1, 3, 5, 7)] * 8,
+])
+def test_pack_segments_covers_every_pixel_once(shapes):
+    plans = warp_kernels.pack_segments(shapes)
+    assert [pl.block_begin for pl in plans] == [0] + [pl.block_end for pl in plans[:-1]]
+    for pl, shape in zip(plans, shapes):
+        assert (pl.B, pl.C, pl.H, pl.W) == shape and pl.block_end > pl.block_begin
+    stored, total = _stored_pixels(plans)
+    assert total == sum(B * H * W for B, _, H, W in shapes)
+    np.testing.assert_array_equal(np.bincount(stored, minlength=total), np.ones(total, int))
+
+
+def test_pack_segments_refuses_what_one_launch_cannot_take():
+    with pytest.raises(ValueError, match="1 to 8 segments"):
+        warp_kernels.pack_segments([(1, 3, 4, 4)] * (warp_kernels.MAX_SEGMENTS + 1))
+    with pytest.raises(ValueError, match="1 to 8 segments"):
+        warp_kernels.pack_segments([])
+    with pytest.raises(ValueError, match="empty"):
+        warp_kernels.pack_segments([(1, 3, 4, 4), (0, 3, 4, 4)])
 
 
 # --------------------------------------------------------------------------
@@ -195,7 +304,7 @@ def test_stereo_function_grads_match_pallas_vjp(rng, W, dmax):
 
     tsrc = _t(src).requires_grad_(True)
     tu = _t(u).requires_grad_(True)
-    out = warp_kernels.StereoSample.apply(tsrc, tu, dmax)
+    out = warp_kernels.stereo_sample_grouped([tsrc], [tu], [dmax])[0]()
     out.backward(_t(g))
     _assert_match(out.detach(), torch.from_numpy(np.array(valid)), ref_out, valid)
     np.testing.assert_allclose(tu.grad.numpy(), np.asarray(ref_du), rtol=0, atol=1e-5)
@@ -218,7 +327,7 @@ def test_gen_function_grads_match_pallas_vjp(rng, C, H, W, pad_v, twist):
     ref_du, ref_dv = vjp(g)
 
     tu, tv = _t(u).requires_grad_(True), _t(v).requires_grad_(True)
-    warp_kernels.FrozenGenSample.apply(_t(src), tu, tv).backward(_t(g))
+    warp_kernels.frozen_gen_sample_grouped([_t(src)], [tu], [tv])[0]().backward(_t(g))
     np.testing.assert_allclose(tu.grad.numpy(), np.asarray(ref_du), rtol=0, atol=1e-5)
     np.testing.assert_allclose(tv.grad.numpy(), np.asarray(ref_dv), rtol=0, atol=1e-5)
     assert np.abs(np.asarray(ref_du)).max() > 0.1
@@ -243,7 +352,7 @@ def test_gen_function_grads_on_the_no_window_branch(rng):
 
     tu = _t(coords[..., 0]).requires_grad_(True)
     tv = _t(coords[..., 1]).requires_grad_(True)
-    warp_kernels.FrozenGenSample.apply(_t(src), tu, tv).backward(_t(g))
+    warp_kernels.frozen_gen_sample_grouped([_t(src)], [tu], [tv])[0]().backward(_t(g))
     ref_dc = np.asarray(ref_dc)
     np.testing.assert_allclose(tu.grad.numpy(), ref_dc[..., 0], rtol=0, atol=1e-5)
     np.testing.assert_allclose(tv.grad.numpy(), ref_dc[..., 1], rtol=0, atol=1e-5)
@@ -276,7 +385,8 @@ def test_stereo_function_gradcheck_float64(rng):
     src = torch.tensor(rng.normal(size=(B, C, H, W)), requires_grad=True)
     tu = torch.tensor(_fractional(cols - disp), requires_grad=True)
     assert torch.autograd.gradcheck(
-        lambda s, uu: warp_kernels.StereoSample.apply(s, uu, dmax)[..., 1:], (src, tu)
+        lambda s, uu: warp_kernels.stereo_sample_grouped([s], [uu], [dmax])[0]()[..., 1:],
+        (src, tu),
     )
 
 
@@ -286,7 +396,7 @@ def test_gen_function_gradcheck_float64(rng):
     u = torch.tensor(_fractional(rng.uniform(0.0, W - 2.0, (B, H, W))), requires_grad=True)
     v = torch.tensor(_fractional(rng.uniform(0.0, H - 2.0, (B, H, W))), requires_grad=True)
     assert torch.autograd.gradcheck(
-        lambda uu, vv: warp_kernels.FrozenGenSample.apply(src, uu, vv), (u, v)
+        lambda uu, vv: warp_kernels.frozen_gen_sample_grouped([src], [uu], [vv])[0](), (u, v)
     )
 
 
@@ -400,19 +510,20 @@ def test_frozen_gen_sample_saves_only_the_source(rng):
     v = _t(rng.uniform(0, H - 1, (B, H, W))).requires_grad_(True)
     saved = []
     with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
-        out = warp_kernels.FrozenGenSample.apply(src, u, v)
+        out = warp_kernels.frozen_gen_sample_grouped([src], [u], [v])[0]()
     assert len(saved) == 3
     full = [t for t in saved if t.ndim == 4]
     assert len(full) == 1 and full[0].data_ptr() == src.data_ptr()
     out.sum().backward()
     assert u.grad.shape == (B, H, W) and v.grad.shape == (B, H, W)
     with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
-        warp_kernels.FrozenGenSample.apply(src, u.detach(), v.detach())
+        warp_kernels.frozen_gen_sample_grouped([src], [u.detach()], [v.detach()])[0]()
     assert len(saved) == 3, "nothing is saved when no coordinate needs a gradient"
 
 
 @pytest.mark.parametrize("wrapper", ["stereo_bwd_u", "stereo_bwd_src", "gen_fwd_aux",
-                                     "gen_bwd_uv"])
+                                     "gen_bwd_uv", "stereo_fwd_pyramid", "gen_fwd_pyramid",
+                                     "gen_fwd_aux_pyramid"])
 def test_new_cuda_wrappers_refuse_cpu_tensors(wrapper):
     src = torch.zeros(1, 3, 8, 16)
     u = torch.zeros(1, 8, 16)
@@ -421,7 +532,184 @@ def test_new_cuda_wrappers_refuse_cpu_tensors(wrapper):
         "stereo_bwd_src": lambda: warp_kernels.stereo_bwd_src_cuda(src, u, 8),
         "gen_fwd_aux": lambda: warp_kernels.gen_sample_cuda(src, u, u, emit_grad_aux=True),
         "gen_bwd_uv": lambda: warp_kernels.gen_bwd_uv_cuda(src, src, u, u),
+        "stereo_fwd_pyramid": lambda: warp_kernels.stereo_sample_pyramid_cuda([src] * 4, [u] * 4),
+        "gen_fwd_pyramid": lambda: warp_kernels.gen_sample_pyramid_cuda([src] * 4, [u] * 4,
+                                                                        [u] * 4),
+        "gen_fwd_aux_pyramid": lambda: warp_kernels.gen_sample_pyramid_cuda(
+            [src] * 2, [u] * 2, [u] * 2, emit_grad_aux=True),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
     assert sum(warp_kernels.LAUNCHES.values()) == 0
+
+
+# --------------------------------------------------------------------------
+# The grouped gradient boundaries: one forward over a pyramid of mixed
+# channel counts against the reference's per-scale custom VJPs (Pallas in
+# interpret mode). Tolerances as above: forward 1e-6 under `valid`, VJPs
+# 1e-5 absolute on a cotangent that is zero outside `valid`.
+# --------------------------------------------------------------------------
+
+STEREO_PYRAMID = [(3, 8, 128, 24), (19, 16, 150, 64), (3, 16, 128, 24)]  # C, H, W, dmax
+GEN_PYRAMID = [(3, 24, 128, 8, SMALL), (19, 24, 128, 8, SMALL), (3, 32, 128, 8, PITCH)]
+
+
+def test_stereo_pyramid_function_matches_pallas_per_scale(rng):
+    import jax
+
+    B = 2
+    srcs, us, gs, refs = [], [], [], []
+    for C, H, W, dmax in STEREO_PYRAMID:
+        src = rng.normal(size=(B, C, H, W)).astype(np.float32)
+        depth = rng.uniform(1.5, 40.0, (B, H, W)).astype(np.float32)
+        disp, u = warp_pallas.stereo_disparity_u(depth, FXB, W)
+        valid = np.array(warp_pallas.stereo_valid_mask(depth, disp, u, H, W, dmax))
+        g = _masked_cotangent(rng, src.shape, valid)
+        out, vjp = jax.vjp(lambda s, uu, d=dmax: warp_pallas._stereo_sample_chw(s, uu, d), src, u)
+        refs.append((out, valid, *vjp(g)))
+        srcs.append(_t(src).requires_grad_(True))
+        us.append(_t(u).requires_grad_(True))
+        gs.append(_t(g))
+    dmaxs = tuple(dmax for *_, dmax in STEREO_PYRAMID)
+    outs = [make() for make in warp_kernels.stereo_sample_grouped(srcs, us, dmaxs)]
+    torch.autograd.backward(outs, gs)
+    for out, src, u, (ref, valid, ref_dsrc, ref_du) in zip(outs, srcs, us, refs):
+        _assert_match(out.detach(), torch.from_numpy(valid), ref, valid)
+        np.testing.assert_allclose(u.grad.numpy(), np.asarray(ref_du), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(src.grad.numpy(), np.asarray(ref_dsrc), rtol=0, atol=1e-5)
+        assert np.abs(np.asarray(ref_du)).max() > 0.1
+
+
+def test_gen_pyramid_function_matches_pallas_per_scale(rng):
+    import jax
+
+    srcs, us, vs, gs, refs = [], [], [], [], []
+    for C, H, W, pad_v, twist in GEN_PYRAMID:
+        src, depth, T, K = _scene(rng, C, H, W, twist)
+        u, v, valid = map(np.array, warp_pallas._gen_warp_prep(depth, T, K, H, W, pad_v))
+        g = _masked_cotangent(rng, src.shape, valid)
+        out, vjp = jax.vjp(
+            lambda uu, vv, s=src, p=pad_v: warp_pallas._gen_sample_chw(s, uu, vv, p), u, v)
+        refs.append((out, valid, *vjp(g)))
+        srcs.append(_t(src))
+        us.append(_t(u).requires_grad_(True))
+        vs.append(_t(v).requires_grad_(True))
+        gs.append(_t(g))
+    outs = [make() for make in warp_kernels.frozen_gen_sample_grouped(srcs, us, vs)]
+    torch.autograd.backward(outs, gs)
+    for out, u, v, (ref, valid, ref_du, ref_dv) in zip(outs, us, vs, refs):
+        _assert_match(out.detach(), torch.from_numpy(valid), ref, valid)
+        np.testing.assert_allclose(u.grad.numpy(), np.asarray(ref_du), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(v.grad.numpy(), np.asarray(ref_dv), rtol=0, atol=1e-5)
+        assert np.abs(np.asarray(ref_du)).max() > 0.1
+
+
+def _grouped(rng, family, shapes, need=None):
+    """A grouped sample of ``family`` over B=2 segments of (C, H, W)
+    ``shapes``: (its per-scale calls, the sources, the sample columns u).
+    The coordinates of scale k need a gradient unless ``need[k]`` is
+    False."""
+    B = 2
+    need = need or [True] * len(shapes)
+    srcs = [_t(rng.normal(size=(B, C, H, W))) for C, H, W in shapes]
+    us = [_t(rng.uniform(0, W - 1, (B, H, W))).requires_grad_(r)
+          for (_, H, W), r in zip(shapes, need)]
+    if family == "stereo":
+        return warp_kernels.stereo_sample_grouped(srcs, us, [8] * len(shapes)), srcs, us
+    vs = [_t(rng.uniform(0, H - 1, (B, H, W))).requires_grad_(r)
+          for (_, H, W), r in zip(shapes, need)]
+    return warp_kernels.frozen_gen_sample_grouped(srcs, us, vs), srcs, us
+
+
+@pytest.mark.parametrize("family", ["stereo", "gen"])
+def test_pyramid_functions_run_the_backward_only_where_a_cotangent_arrives(
+        rng, monkeypatch, family):
+    """Only the middle scale's output reaches the loss: its backward
+    kernel runs once, the other scales get no gradient."""
+    shapes = [(3, 4, 12), (19, 6, 10), (3, 8, 16)]
+    bwd = "stereo_bwd_u" if family == "stereo" else "gen_bwd_uv"
+    calls = []
+    real = getattr(warp_kernels, bwd)
+    monkeypatch.setattr(warp_kernels, bwd, lambda *a: calls.append(a[0].shape) or real(*a))
+    makers, _, us = _grouped(rng, family, shapes)
+    outs = [make() for make in makers]
+    assert [tuple(o.shape[1:]) for o in outs] == shapes
+    outs[1].sum().backward()
+    assert calls == [torch.Size((2, 19, 6, 10))]
+    assert us[0].grad is None and us[2].grad is None and us[1].grad.abs().max() > 0
+
+
+def test_pyramid_functions_save_what_the_per_scale_functions_save(rng):
+    """The grouped stereo sample keeps (src, u) of every scale; the
+    grouped general one (src, u, v) of each scale whose coordinates need
+    a gradient, and nothing of the others."""
+    shapes = [(3, 4, 12), (19, 6, 10), (3, 8, 16)]
+    saved = []
+    makers, _, _ = _grouped(rng, "stereo", shapes)
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        [make() for make in makers]
+    assert len(saved) == 6
+    makers, srcs, _ = _grouped(rng, "gen", shapes, need=[True, False, True])
+    saved.clear()
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        [make() for make in makers]
+    assert len(saved) == 6
+    assert [t.data_ptr() for t in saved if t.ndim == 4] == [srcs[0].data_ptr(), srcs[2].data_ptr()]
+
+
+@pytest.mark.parametrize("family", ["stereo", "gen"])
+@pytest.mark.parametrize("mode", ["enable_grad", "no_grad", "inference_mode"])
+def test_grouped_sample_calls_let_go_of_what_they_took(rng, family, mode):
+    """A per-scale call, once made, holds neither its output nor its
+    inputs: with the caller's result, its graph and its inputs dropped, the
+    output's memory goes, as with one launch per scale (where the loss
+    does not keep a warped output, the train step's peak depends on it).
+    A second call of the same scale raises."""
+    import weakref
+
+    with getattr(torch, mode)():
+        makers, srcs, us = _grouped(rng, family, [(3, 4, 12), (19, 6, 10)])
+        out = makers[1]()
+        kept = [weakref.ref(t) for t in (srcs[1], us[1], out if out._base is None else out._base)]
+        del srcs, us, out
+        assert [k() for k in kept] == [None] * 3
+        with pytest.raises(RuntimeError, match="scale 1 was taken already"):
+            makers[1]()
+        assert makers[0]().shape[1:] == (3, 4, 12)
+
+
+class _Probe(torch.autograd.Function):
+    """Identity whose backward appends ``tag`` to ``log``."""
+
+    @staticmethod
+    def forward(ctx, x, log, tag):
+        ctx.log, ctx.tag = log, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.log.append(ctx.tag)
+        return g, None, None
+
+
+@pytest.mark.parametrize("family", ["stereo", "gen"])
+def test_each_scale_backward_runs_right_after_its_loss(rng, monkeypatch, family):
+    """One forward launch for all scales, one gradient node per scale:
+    with each node made where its scale's loss is built, as the loss graph
+    does, each scale's backward kernel runs (and frees its cotangent)
+    right after that loss's backward, before the earlier scales' losses,
+    as with one launch per scale."""
+    shapes = [(3, 4, 12), (19, 6, 10), (3, 8, 16)]
+    bwd = "stereo_bwd_u" if family == "stereo" else "gen_bwd_uv"
+    log = []
+    real = getattr(warp_kernels, bwd)
+    monkeypatch.setattr(warp_kernels, bwd,
+                        lambda *a: log.append(f"{bwd} {a[0].shape[1]}") or real(*a))
+    makers, _, us = _grouped(rng, family, shapes)
+    total = 0.0
+    for k, make in enumerate(makers):
+        total = total + (_Probe.apply(make(), log, f"loss {k}") ** 2).sum()
+    total.backward()
+    assert log == [entry for k in (2, 1, 0)
+                   for entry in (f"loss {k}", f"{bwd} {shapes[k][0]}")]
+    assert all(u.grad.abs().max() > 0 for u in us)
