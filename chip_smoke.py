@@ -40,7 +40,16 @@ with a nonzero exit code:
              not a multiple of 4, a one-pixel-wide segment, mixed C) equal
              everywhere; the grouped launch's time beside the four
              one-segment launches and the four library calls timed
-             together, and the summed byte bound.
+             together, and the summed byte bound. Then the main path's
+             stereo_bwd_u: the finest segment in a launch of its own and
+             the three coarse ones in one launch, all four in one launch,
+             the stereo autograd.Function's d_u over the four scales, and
+             one launch over ragged segments (C = 1 and 19, H*W not a
+             multiple of 4, one pixel wide), each segment bit for bit
+             equal to its plain version everywhere; the path's two
+             launches timed together and each alone, beside the four
+             one-segment launches, the four library grid backwards timed
+             together and the summed byte bound.
 4. slice   - the held-out loss pass (``make_eval_step`` + ``run_validation``,
              what ``cli test`` runs) on full_feat at 608x160, batch 4:
              float32 with TF32 off against the same pass on the CPU (plain
@@ -60,7 +69,7 @@ with a nonzero exit code:
              elsewhere, as one vector, <= 4x that spread; then the main
              path: ``cli train`` on the default (bfloat16) config, launch
              counts reset just before and read just after (exactly 1
-             stereo_fwd, 4 stereo_bwd_u, 1 gen_fwd, 4 gen_bwd_uv and no
+             stereo_fwd, 2 stereo_bwd_u, 1 gen_fwd, 4 gen_bwd_uv and no
              gen_fwd_aux or stereo_bwd_src per step), finite losses, and
              ms/step, frames/s and peak memory over 12 steady steps on
              pre-made batches.
@@ -70,7 +79,8 @@ with a nonzero exit code:
 
 The last three lines are the nvidia-smi line, the ``{"kernels": [...]}``
 summary (launches per step of the main path, ``cli train``; for
-stereo_fwd and gen_fwd the grouped launch's times) and
+stereo_fwd and gen_fwd the grouped launch's times, for stereo_bwd_u the
+path's two launches) and
 ``{"ok": true, "device": {...}}``. Without a GPU the script
 exits with code 1 and prints no result.
 """
@@ -454,6 +464,60 @@ def phase_kernels(cfg, dev):
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
             "copy_ms": device_ms(lambda: copy_dst.copy_(copy_src)),
         })
+
+    # The main path's stereo_bwd_u: the finest segment alone and the coarse
+    # ones in one launch, as the stereo autograd.Function runs them, on a
+    # cotangent that is zero outside `valid`; each segment bit for bit
+    # equal to its plain version everywhere, also all four in one launch,
+    # through the Function, and over ragged segments (C = 1 and 19).
+    segs = pyramid["stereo_fwd"]
+    srcs, us, grids = [s[0] for s in segs], [s[1] for s in segs], [s[3] for s in segs]
+    gs = [torch.randn(s.shape, device=dev, generator=gen) * seg[2][:, None]
+          for s, seg in zip(srcs, segs)]
+
+    def bwd_u_path():
+        return (wk.stereo_bwd_u_grouped_cuda(srcs[:-1], gs[:-1], us[:-1])
+                + wk.stereo_bwd_u_grouped_cuda(srcs[-1:], gs[-1:], us[-1:]))
+
+    def max_err(got, ref):
+        return max(float(torch.abs(a - b).max()) for a, b in zip(got, ref))
+
+    plain_us = [wk.stereo_bwd_u_plain(s, g, u) for s, g, u in zip(srcs, gs, us)]
+    u_reqs = [u.clone().requires_grad_(True) for u in us]
+    outs = [make() for make in wk.stereo_sample_grouped(
+        srcs, u_reqs, [stereo_dmax(cfg, s.shape[-1]) for s in srcs])]
+    torch.autograd.backward(outs, gs)
+    errs = {"path": max_err(bwd_u_path(), plain_us),
+            "all_in_one": max_err(wk.stereo_bwd_u_grouped_cuda(srcs, gs, us), plain_us),
+            "function": max_err([u.grad for u in u_reqs], plain_us)}
+    r_srcs = [torch.randn(BATCH, c, h, w, device=dev, generator=gen)
+              for c, (_, h, w) in zip((1, 19, 3), ragged)]
+    r_gs = [torch.randn(s.shape, device=dev, generator=gen) for s in r_srcs]
+    errs["ragged"] = max_err(wk.stereo_bwd_u_grouped_cuda(r_srcs, r_gs, r_us),
+                             [wk.stereo_bwd_u_plain(*a) for a in zip(r_srcs, r_gs, r_us)])
+    if any(errs.values()):
+        raise AssertionError(f"grouped stereo_bwd_u: max errs {errs}; the kernel is bit-exact")
+
+    def bound_of(ss):
+        return bound_ms(sum(4 * (2 * s.numel() + 2 * s[:, 0].numel()) for s in ss),
+                        sum(3 * s.numel() for s in ss))
+
+    b_ms, b_by = bound_of(srcs)
+    rows.append({
+        "kernel": "stereo_bwd_u", "pyramid": True, "shapes": [list(s.shape) for s in srcs],
+        "ragged_shapes": [list(s.shape) for s in r_srcs],
+        "max_abs_err": max(errs.values()), "errs": errs,
+        "ms": device_ms(bwd_u_path),
+        "finest_ms": device_ms(lambda: wk.stereo_bwd_u_grouped_cuda(srcs[-1:], gs[-1:], us[-1:])),
+        "coarse_ms": device_ms(lambda: wk.stereo_bwd_u_grouped_cuda(srcs[:-1], gs[:-1], us[:-1])),
+        "all_in_one_ms": device_ms(lambda: wk.stereo_bwd_u_grouped_cuda(srcs, gs, us)),
+        "per_scale_ms": device_ms(lambda: [wk.stereo_bwd_u_cuda(*a) for a in zip(srcs, gs, us)]),
+        "plain_ms": device_ms(lambda: [wk.stereo_bwd_u_plain(*a) for a in zip(srcs, gs, us)]),
+        "library_ms": device_ms(lambda: [lib_sample_bwd(g, s, grid, (False, True))
+                                         for g, s, grid in zip(gs, srcs, grids)]),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "finest_bound_ms": bound_of(srcs[-1:])[0], "coarse_bound_ms": bound_of(srcs[:-1])[0],
+    })
     emit({"phase": "kernels", "shapes": rows})
     return rows
 
@@ -486,9 +550,10 @@ def _eval_launches(cfg) -> dict:
 
 
 def _train_launches(cfg) -> dict:
-    """The grouped forwards, then one backward launch per scale."""
+    """The grouped forwards; then one gen_bwd_uv launch per scale, and one
+    stereo_bwd_u launch for the finest scale and one for the coarse ones."""
     n = cfg.model.num_scales
-    return {"stereo_fwd": 1, "stereo_bwd_u": n, "gen_fwd": 1, "gen_bwd_uv": n}
+    return {"stereo_fwd": 1, "stereo_bwd_u": min(n, 2), "gen_fwd": 1, "gen_bwd_uv": n}
 
 
 def phase_slice(variant: str, dev):
@@ -802,9 +867,9 @@ def main() -> int:
     ):
         mine = [r for r in rows if r["kernel"] == kernel]
         grouped = [r for r in mine if r.get("pyramid")]
-        # Per step or batch of the main path: the grouped launch where the
-        # path makes one (beside its segments' one-segment launches timed
-        # together), else one launch at each shape, summed.
+        # Per step or batch of the main path: the grouped launches where
+        # the path makes them (beside its segments' one-segment launches
+        # timed together), else one launch at each shape, summed.
         timed = grouped or mine
         summary.append({
             "name": kernel, "route": "cuda",

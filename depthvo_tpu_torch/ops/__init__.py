@@ -2,9 +2,10 @@
 ``depthvo_tpu/ops/__init__.py``).
 
 * ``stereo_warp_pyramid_chw`` - rectified-stereo warp of each scale of
-  a loss pyramid through one ``stereo_fwd`` launch, differentiated per
-  scale by ``stereo_bwd_u`` (and ``stereo_bwd_src`` when the source needs
-  a gradient).
+  a loss pyramid through one ``stereo_fwd`` launch, differentiated by
+  ``stereo_bwd_u``, one launch for the finest scale and one for the
+  coarse scales together (and per scale by ``stereo_bwd_src`` when the
+  source needs a gradient).
 * ``frozen_warp_pyramid_chw`` - general warp of each scale's constant
   source through one ``gen_fwd`` launch, differentiated per scale with
   respect to the sample coordinates by ``gen_bwd_uv``, which recomputes
@@ -72,9 +73,11 @@ def stereo_warp_pyramid_chw(srcs: Sequence, depths: Sequence, fx_baselines: Sequ
     ``configs.base.stereo_dmax``; ``None`` drops the bound).
 
     Returns, per scale, a call that returns (warped, valid (B,H,W)). Make
-    each call once, where that scale's loss is built: its gradient node
-    then runs right after that loss's backward, and frees its cotangent
-    there, and the warped output lives only as long as the loss needs it.
+    each call once, where that scale's loss is built: the finest scale's
+    gradient node then runs right after that loss's backward, and frees
+    its cotangent there; the coarse scales' shared node, made by the first
+    of their calls, runs once after all their losses' backwards. Each
+    warped output lives only as long as the loss needs it.
     """
     prep = [warp_kernels.stereo_warp_prep(s.shape[2:], d, f, m)
             for s, d, f, m in zip(srcs, depths, fx_baselines, dmaxs)]

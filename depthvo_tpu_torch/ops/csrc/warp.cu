@@ -25,11 +25,12 @@
 // window, |u - col| <= 127) are part of the caller's `valid` mask, not a
 // limit on what these kernels can read.
 //
-// The forwards (stereo_fwd, gen_fwd). The loss warps every scale of its
-// pyramid, and all scales' inputs exist before the first warp, so one
-// launch takes a table of up to kMaxSegments segments: each segment is one
-// (src, u[, v], out) with its own B, C, H, W, passed by value as a
-// __grid_constant__ kernel parameter. The grid is one 1-D run of blocks
+// The forwards (stereo_fwd, gen_fwd) and stereo_bwd_u. The loss warps
+// every scale of its pyramid, and all scales' inputs exist before the
+// first warp, so one launch takes a table of up to kMaxSegments segments:
+// each segment is one (src, u[, v], out) (for stereo_bwd_u: src, u, g,
+// d_u) with its own B, C, H, W, passed by value as a __grid_constant__
+// kernel parameter. The grid is one 1-D run of blocks
 // over all segments' pixels; a block finds its segment by comparing its
 // index with the segments' block ends. What held the one-launch-per-scale
 // design back (PERF.md): each launch cost ~3 us at the coarse scales
@@ -52,9 +53,15 @@
 // (chip_smoke.py's copy_ms), below the 3.35 TB/s of the bound.
 //
 // The backwards:
-//   * stereo_bwd_u: one thread per output pixel recomputes the forward's
-//     taps and sums g * (s1 - s0) over the channels in channel order.
-//   * gen_bwd_uv: the same for the general warp. On the TPU the forward
+//   * stereo_bwd_u: the forward's table and pixel layout; a thread
+//     recomputes the taps of its kPix pixels, loads g and both taps of
+//     kStereoChan channels (all of them at C = 3) before summing any, and
+//     sums g * (s1 - s0) in channel order. A backward launch can run only
+//     once every one of its scales has its cotangent, so the finest scale,
+//     whose cotangent comes first, keeps a launch of its own, and the
+//     coarse scales, each 2.4-2.7 us alone whatever its size (PERF.md),
+//     share one (warp_kernels.StereoSample).
+//   * gen_bwd_uv: the general warp's. On the TPU the forward
 //     emitted S and D because its gather was bound by the vector
 //     instructions it spent on every candidate; here two stored (B,C,H,W)
 //     factor tensors cost more bytes to write and read back than the
@@ -87,10 +94,10 @@
 //     fills and sums in turn, so the block's time is the sum of those
 //     latencies, set by its slowest thread: every row has a left-edge
 //     pixel that sums one tap per output clipped there.
-//   * Each backward launch takes one (B,C,H,W) problem (the caller loops
-//     over the pyramid's scales), one thread per output pixel or, for
-//     stereo_bwd_src, per source pixel (H <= 65535 and B <= 65535: grid
-//     y/z limits).
+//   * gen_bwd_uv and stereo_bwd_src launch once per (B,C,H,W) problem
+//     (the caller loops over the pyramid's scales), one thread per output
+//     pixel or, for stereo_bwd_src, per source pixel (H <= 65535 and
+//     B <= 65535: grid y/z limits).
 //
 // Rounding. Every lerp is evaluated as (1 - a) * s0 + a * s1 with each
 // operation rounded on its own (__fmul_rn / __fadd_rn forbid FMA
@@ -105,10 +112,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kWarp = 32;
-// The forwards' layout; depthvo_fwd_layout reports it, and the Python
-// side refuses to load a library whose layout its packing does not match.
+// The layout of the launches over a segment table (the forwards and
+// stereo_bwd_u); depthvo_fwd_layout reports it, and the Python side
+// refuses to load a library whose layout its packing does not match.
 constexpr int kMaxSegments = 8;
 constexpr int kFwdThreads = 128;
 constexpr int kPix = 2;  // pixels per forward thread
@@ -129,13 +136,15 @@ __device__ __forceinline__ void stereo_tap(float u, int W, int& x0, float& au) {
   au = __fsub_rn(uc, u0f);
 }
 
-// One segment of a forward launch: src, out (and the factors s_aux, d_aux
-// of gen_fwd's aux mode) (B,C,H,W), u and v (B,H,W); v, s_aux and d_aux
-// are null where unused. `pixels` = B H W.
+// One segment of a launch over a table: src, out (and the factors s_aux,
+// d_aux of gen_fwd's aux mode) (B,C,H,W), u and v (B,H,W); for
+// stereo_bwd_u, src and the cotangent g (B,C,H,W), u, and d_u (B,H,W) in
+// `out`. Fields a kernel does not use are null. `pixels` = B H W.
 struct Segment {
   const float* src;
   const float* u;
   const float* v;
+  const float* g;
   float* out;
   float* s_aux;
   float* d_aux;
@@ -381,32 +390,64 @@ gen_bwd_uv_kernel(const float* __restrict__ src, const float* __restrict__ g,
   }
 }
 
-// d_u[b,i,j] = sum_c g[b,c,i,j] * (s1 - s0), with the taps of
-// stereo_fwd_kernel. src, g (B,C,H,W), u (B,H,W), d_u (B,H,W).
-__global__ void __launch_bounds__(kThreads)
-stereo_bwd_u_kernel(const float* __restrict__ src, const float* __restrict__ g,
-                    const float* __restrict__ u, float* __restrict__ d_u,
-                    int C, int H, int W) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= W) return;
-  const int i = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t HW = static_cast<size_t>(H) * W;
-  const size_t row = static_cast<size_t>(b) * C * HW + static_cast<size_t>(i) * W;
-  const size_t pix = (static_cast<size_t>(b) * H + i) * W + j;
+// For every segment: d_u[b,i,j] = sum_c g[b,c,i,j] * (s1 - s0), with the
+// taps of stereo_fwd_pyramid_kernel (s0 at x0, s1 at min(x0 + 1, W - 1)),
+// summed in channel order. The layout of stereo_fwd_pyramid_kernel: kPix
+// pixels per thread (segment_of), each pixel's g and both taps of kChan
+// channels loaded before any is summed; past the segment's end a thread
+// computes its last pixel again and stores nothing.
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+stereo_bwd_u_pyramid_kernel(const __grid_constant__ SegmentTable table) {
+  constexpr int kChan = kStereoChan;
+  int q0;
+  const Segment& sg = table.seg[segment_of(table, q0)];
+  const int C = sg.C;
+  const int W = sg.W;
+  const int HW = sg.H * W;
 
-  int x0;
-  float au;
-  stereo_tap(u[pix], W, x0, au);
-  const int x1 = min(x0 + 1, W - 1);
-
-  float acc = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const float* r = src + row + c * HW;
-    const float slope = __fsub_rn(__ldg(r + x1), __ldg(r + x0));
-    acc = __fadd_rn(acc, __fmul_rn(__ldg(g + row + c * HW + j), slope));
+  // The pixel's d_u offset (-1: not stored), its offset in channel 0 of
+  // g, its first tap there and the step (0 or 1) to the second.
+  int o[kPix], gp[kPix], t0[kPix], dx[kPix];
+  float acc[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const Pixel px = pixel_at(sg, HW, q0 + k * kWarp);
+    int x0;
+    float au;
+    stereo_tap(__ldg(sg.u + px.q), W, x0, au);
+    o[k] = px.out < 0 ? -1 : px.q;
+    gp[k] = px.image + px.p;
+    t0[k] = gp[k] - px.p % W + x0;
+    dx[k] = x0 + 1 < W ? 1 : 0;
+    acc[k] = 0.0f;
   }
-  d_u[pix] = acc;
+
+  for (int c0 = 0; c0 < C; c0 += kChan) {
+    float gv[kChan][kPix], s0[kChan][kPix], s1[kChan][kPix];
+#pragma unroll
+    for (int c = 0; c < kChan; ++c) {
+      const int plane = min(c0 + c, C - 1) * HW;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        gv[c][k] = __ldg(sg.g + plane + gp[k]);
+        s0[c][k] = __ldg(sg.src + plane + t0[k]);
+        s1[c][k] = __ldg(sg.src + plane + t0[k] + dx[k]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChan; ++c) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if (c0 + c < C) {
+          acc[k] = __fadd_rn(acc[k], __fmul_rn(gv[c][k], __fsub_rn(s1[c][k], s0[c][k])));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if (o[k] >= 0) sg.out[o[k]] = acc[k];
+  }
 }
 
 constexpr int kSrcThreads = 256;  // threads of a stereo_bwd_src block
@@ -561,14 +602,10 @@ stereo_bwd_src_kernel(const float* __restrict__ g, const float* __restrict__ u,
   }
 }
 
-dim3 pixel_grid(int B, int H, int W) {
-  return dim3((W + kThreads - 1) / kThreads, H, B);
-}
-
-// The fields of one segment in the forwards' host arrays: pointers
-// (src, u, v, out, s_aux, d_aux) and ints (B, C, H, W, block_end), the
-// latter from warp_kernels.pack_segments.
-constexpr int kPtrFields = 6;
+// The fields of one segment in a table launch's host arrays: pointers
+// (src, u, v, g, out, s_aux, d_aux; warp_kernels.TABLE_FIELDS) and ints
+// (B, C, H, W, block_end), the latter from warp_kernels.pack_segments.
+constexpr int kPtrFields = 7;
 constexpr int kIntFields = 5;
 
 // Copies n segments from the host arrays into a launch's table; false
@@ -585,9 +622,10 @@ bool fill_table(int n, const void* const* ptrs, const int* ints, SegmentTable& t
     sg.src = static_cast<const float*>(p[0]);
     sg.u = static_cast<const float*>(p[1]);
     sg.v = static_cast<const float*>(p[2]);
-    sg.out = static_cast<float*>(const_cast<void*>(p[3]));
-    sg.s_aux = static_cast<float*>(const_cast<void*>(p[4]));
-    sg.d_aux = static_cast<float*>(const_cast<void*>(p[5]));
+    sg.g = static_cast<const float*>(p[3]);
+    sg.out = static_cast<float*>(const_cast<void*>(p[4]));
+    sg.s_aux = static_cast<float*>(const_cast<void*>(p[5]));
+    sg.d_aux = static_cast<float*>(const_cast<void*>(p[6]));
     sg.C = q[1];
     sg.H = q[2];
     sg.W = q[3];
@@ -600,8 +638,9 @@ bool fill_table(int n, const void* const* ptrs, const int* ints, SegmentTable& t
 
 }  // namespace
 
-// The forwards' launch layout: (kMaxSegments, kFwdThreads, kPix), which
-// warp_kernels.pack_segments must use for the block ends it passes.
+// The layout of the table launches (the forwards and stereo_bwd_u):
+// (kMaxSegments, kFwdThreads, kPix), which warp_kernels.pack_segments must
+// use for the block ends it passes.
 extern "C" void depthvo_fwd_layout(int* out) {
   out[0] = kMaxSegments;
   out[1] = kFwdThreads;
@@ -622,12 +661,13 @@ extern "C" int depthvo_stereo_fwd(int n, const void* const* ptrs, const int* int
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int depthvo_stereo_bwd_u(const float* src, const float* g,
-                                    const float* u, float* d_u, int B, int C,
-                                    int H, int W, void* stream) {
-  stereo_bwd_u_kernel<<<pixel_grid(B, H, W), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(src, g, u, d_u,
-                                                             C, H, W);
+// As depthvo_stereo_fwd: d_u of n segments (src, u, g, d_u) in one launch.
+extern "C" int depthvo_stereo_bwd_u(int n, const void* const* ptrs, const int* ints,
+                                    void* stream) {
+  SegmentTable t;
+  if (!fill_table(n, ptrs, ints, t)) return static_cast<int>(cudaErrorInvalidValue);
+  stereo_bwd_u_pyramid_kernel<<<t.block_end[n - 1], kFwdThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 

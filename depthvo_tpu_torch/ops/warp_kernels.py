@@ -8,7 +8,8 @@ plain PyTorch version of the same function beside it:
   warp, a horizontal-only bilinear resample of each source row, over up
   to :data:`MAX_SEGMENTS` segments (the pyramid's scales) in one launch.
 * ``stereo_bwd_u`` (replaces ``_stereo_bwd_u_kernel``): its gradient with
-  respect to the sample column u, d_u = sum_c g * (s1 - s0).
+  respect to the sample column u, d_u = sum_c g * (s1 - s0), over up to
+  :data:`MAX_SEGMENTS` segments in one launch.
 * ``stereo_bwd_src`` (replaces ``_stereo_bwd_src_kernel``): its gradient
   with respect to the source: each output's two taps, with the taps of
   outputs more than ``dmax + 1`` columns right of the source pixel
@@ -31,14 +32,18 @@ VJPs, so autograd on either device runs the same backward contract:
 :class:`StereoSample` (``_stereo_sample_chw``: backward K2 and, when the
 source needs a gradient, K3) and :class:`FrozenGenSample`
 (``_gen_sample_chw``: backward ``gen_bwd_uv`` from the saved source, no
-source gradient). Each holds one scale around a forward already made by
+source gradient). They hold forwards already made by
 :func:`stereo_sample_grouped` / :func:`frozen_gen_sample_grouped`, which
 launch K1 or K4 once over all scales and hand back, per scale, a call
-that makes that scale's gradient node. Autograd runs a node after every
-node made later, so a caller that makes each scale's node where it
-builds that scale's loss gets each backward, and the release of its
-cotangent, right after that scale's loss terms, as with one launch per
-scale. A single scale is a group of one.
+that returns that scale's output behind its gradient node. Autograd runs
+a node after every node made later, so a caller that makes each call
+where it builds that scale's loss gets each backward, and the release of
+its cotangent, right after that scale's loss terms, as with one launch
+per scale. :class:`FrozenGenSample` holds one scale. :class:`StereoSample`
+holds the finest scale alone and the coarse scales together: their node,
+made by the first of their calls, runs one K2 launch for all of them
+after the last of their losses' backwards. A single scale is a group of
+one.
 Gradients go to the unclipped coordinates with no clip derivative, as in
 the reference.
 
@@ -66,11 +71,14 @@ LANE = 128  # the reference kernel's lane block; |u - col| <= LANE - 1
 GEN_PAD_V = 16  # default vertical half-window (rows, a multiple of 8)
 # stereo_bwd_src stages 44 W bytes per row in shared memory (227 KB a block)
 MAX_BWD_SRC_WIDTH = 5120
-# The forwards' launch table; the library checks them against its own
-# (csrc/warp.cu kMaxSegments, kFwdThreads, kPix) when it loads.
+# The launch table of the forwards and of stereo_bwd_u; the library checks
+# them against its own (csrc/warp.cu kMaxSegments, kFwdThreads, kPix) when
+# it loads.
 MAX_SEGMENTS = 8
 FWD_THREADS = 128
 FWD_PIX = 2
+# A segment's pointers in that table, in csrc/warp.cu fill_table's order.
+TABLE_FIELDS = ("src", "u", "v", "g", "out", "s_aux", "d_aux")
 
 # Launches per (kernel name, src shape); only the CUDA wrappers count,
 # where they launch.
@@ -93,7 +101,7 @@ def _kernels() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.depthvo_stereo_fwd.argtypes = [i, p, p, p]
     lib.depthvo_stereo_fwd.restype = i
-    lib.depthvo_stereo_bwd_u.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.depthvo_stereo_bwd_u.argtypes = [i, p, p, p]
     lib.depthvo_stereo_bwd_u.restype = i
     lib.depthvo_stereo_bwd_src.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.depthvo_stereo_bwd_src.restype = i
@@ -169,10 +177,10 @@ class SegmentPlan(NamedTuple):
 
 
 def pack_segments(shapes: Sequence[tuple]) -> list[SegmentPlan]:
-    """The launch table of ``stereo_fwd``/``gen_fwd`` for segments of
-    (B, C, H, W) ``shapes``, in order."""
+    """The launch table of ``stereo_fwd``/``gen_fwd``/``stereo_bwd_u`` for
+    segments of (B, C, H, W) ``shapes``, in order."""
     if not 1 <= len(shapes) <= MAX_SEGMENTS:
-        raise ValueError(f"a forward launch takes 1 to {MAX_SEGMENTS} segments, "
+        raise ValueError(f"a grouped launch takes 1 to {MAX_SEGMENTS} segments, "
                          f"got {len(shapes)}")
     plans, begin = [], 0
     for k, (B, C, H, W) in enumerate(shapes):
@@ -186,26 +194,39 @@ def pack_segments(shapes: Sequence[tuple]) -> list[SegmentPlan]:
     return plans
 
 
-def _check_segments(srcs, *maps) -> list[SegmentPlan]:
+def _check_segments(srcs, *maps, gs=None) -> list[SegmentPlan]:
     """Checks the segments of a grouped CUDA wrapper as :func:`_check_cuda`
-    does, all on the first source's device; returns their launch table."""
+    does, all on the first source's device, every shape before any
+    device: the sources (B,C,H,W), the coordinate ``maps`` (B,H,W) and the
+    cotangents ``gs`` (B,C,H,W), if any. Returns their launch table."""
     if any(len(m) != len(srcs) for m in maps):
         raise ValueError("every segment needs its source and its coordinate maps")
+    if gs is not None and len(gs) != len(srcs):
+        raise ValueError("every segment needs its source and its cotangent")
     plans = pack_segments([tuple(_check_src(s, f"src[{k}]")) for k, s in enumerate(srcs)])
-    device = srcs[0].device
+    checks = []
     for k, (src, pl) in enumerate(zip(srcs, plans)):
-        _check_cuda(f"src[{k}]", src, tuple(src.shape), device)
-        for name, m in zip("uv", maps):
-            _check_cuda(f"{name}[{k}]", m[k], (pl.B, pl.H, pl.W), device)
+        checks.append((f"src[{k}]", src, tuple(src.shape)))
+        checks += [(f"{name}[{k}]", m[k], (pl.B, pl.H, pl.W)) for name, m in zip("uv", maps)]
+        if gs is not None:
+            checks.append((f"g[{k}]", gs[k], tuple(src.shape)))
+    for name, t, shape in checks:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    for name, t, shape in checks:
+        _check_cuda(name, t, shape, srcs[0].device)
     return plans
 
 
-def _launch_fwd(name: str, fn, plans, srcs, us, vs, outs, s_auxs, d_auxs, *flags) -> None:
-    """One grouped forward launch: packs the segments' pointers and plans
-    into the host arrays ``csrc/warp.cu``'s ``fill_table`` reads, and
-    counts it in :data:`LAUNCHES` under the segments' shapes."""
+def _launch_table(name: str, fn, plans, *flags, **fields) -> None:
+    """One grouped launch: packs the segments' tensors (``fields``, one
+    list per name of :data:`TABLE_FIELDS` the kernel reads or writes) and
+    plans into the host arrays ``csrc/warp.cu``'s ``fill_table`` reads,
+    and counts it in :data:`LAUNCHES` under the sources' shapes."""
+    srcs = fields["src"]
+    none = [None] * len(plans)
     ptrs = [None if t is None else t.data_ptr()
-            for row in zip(srcs, us, vs, outs, s_auxs, d_auxs) for t in row]
+            for row in zip(*(fields.get(f, none) for f in TABLE_FIELDS)) for t in row]
     ints = [x for pl in plans for x in (pl.B, pl.C, pl.H, pl.W, pl.block_end)]
     _launch(name, fn, len(plans), (ctypes.c_void_p * len(ptrs))(*ptrs),
             (ctypes.c_int * len(ints))(*ints), *flags, _stream(srcs[0].device))
@@ -245,9 +266,7 @@ def stereo_sample_pyramid_cuda(srcs: Sequence[torch.Tensor],
     kernel does not take or when the launch fails; never falls back."""
     plans = _check_segments(srcs, us)
     outs = [torch.empty_like(s) for s in srcs]
-    none = [None] * len(srcs)
-    _launch_fwd("stereo_fwd", _kernels().depthvo_stereo_fwd, plans, srcs, us, none, outs,
-                none, none)
+    _launch_table("stereo_fwd", _kernels().depthvo_stereo_fwd, plans, src=srcs, u=us, out=outs)
     return outs
 
 
@@ -285,26 +304,37 @@ def stereo_bwd_u_plain(src: torch.Tensor, g: torch.Tensor,
     return acc
 
 
+def stereo_bwd_u_grouped_cuda(srcs: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
+                              us: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Launch ``stereo_bwd_u`` (csrc/warp.cu) once over the segments
+    (srcs[k], gs[k], us[k]), up to :data:`MAX_SEGMENTS`: d_u per segment.
+    Raises on anything the kernel does not take or when the launch fails;
+    never falls back."""
+    plans = _check_segments(srcs, us, gs=gs)
+    d_us = [torch.empty_like(u) for u in us]
+    _launch_table("stereo_bwd_u", _kernels().depthvo_stereo_bwd_u, plans, src=srcs, u=us,
+                  g=gs, out=d_us)
+    return d_us
+
+
 def stereo_bwd_u_cuda(src: torch.Tensor, g: torch.Tensor,
                       u: torch.Tensor) -> torch.Tensor:
-    """Launch ``stereo_bwd_u`` (csrc/warp.cu); raises, never falls back."""
-    B, C, H, W = _check_src(src)
-    _check_cuda("src", src, (B, C, H, W), src.device)
-    _check_cuda("g", g, (B, C, H, W), src.device)
-    _check_cuda("u", u, (B, H, W), src.device)
-    d_u = torch.empty_like(u)
-    _launch("stereo_bwd_u", _kernels().depthvo_stereo_bwd_u,
-            src.data_ptr(), g.data_ptr(), u.data_ptr(), d_u.data_ptr(),
-            B, C, H, W, _stream(src.device))
-    LAUNCHES[("stereo_bwd_u", (B, C, H, W))] += 1
-    return d_u
+    """``stereo_bwd_u`` on one segment."""
+    return stereo_bwd_u_grouped_cuda([src], [g], [u])[0]
+
+
+def stereo_bwd_u_grouped(srcs: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
+                         us: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """K2 over segments on the tensors' device: the plain version per
+    segment on the CPU, one kernel launch on CUDA."""
+    if srcs[0].device.type == "cpu":
+        return [stereo_bwd_u_plain(s, g, u) for s, g, u in zip(srcs, gs, us)]
+    return stereo_bwd_u_grouped_cuda(srcs, gs, us)
 
 
 def stereo_bwd_u(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """K2 on the tensor's device: plain version on the CPU, kernel on CUDA."""
-    if src.device.type == "cpu":
-        return stereo_bwd_u_plain(src, g, u)
-    return stereo_bwd_u_cuda(src, g, u)
+    """K2 on one segment."""
+    return stereo_bwd_u_grouped([src], [g], [u])[0]
 
 
 # --------------------------------------------------------------------------
@@ -356,53 +386,86 @@ def stereo_bwd_src(g: torch.Tensor, u: torch.Tensor, dmax: int | None) -> torch.
     return stereo_bwd_src_cuda(g, u, dmax)
 
 
+def _shared_once(items, make, first: int = 0) -> list[Callable[[], torch.Tensor]]:
+    """Per item k (scale ``first + k``), a call, to be made once, that
+    returns item k's output from one node for all the items: the first
+    call makes it, ``make(items) -> outputs``, and lets go of the items;
+    each other output is held only until its own call takes it."""
+    items, held = list(items), [None] * len(items)
+
+    def take(k):
+        if items:
+            held[:] = make(items)
+            items.clear()
+        out, held[k] = held[k], None
+        if out is None:
+            raise RuntimeError(f"the grouped sample's scale {first + k} was taken already")
+        return out
+
+    return [functools.partial(take, k) for k in range(len(held))]
+
+
 def _taken_once(items, make) -> list[Callable[[], torch.Tensor]]:
     """Per item k, a call that returns ``make(*items[k])`` and lets go of
     the item: once a scale's output is taken, what it held (the output
     itself, its source and coordinates) lives only as long as the caller's
-    graph needs it, as with one launch per scale."""
-    items = list(items)
-
-    def take(k):
-        item, items[k] = items[k], None
-        if item is None:
-            raise RuntimeError(f"the grouped sample's scale {k} was taken already")
-        return make(*item)
-
-    return [functools.partial(take, k) for k in range(len(items))]
+    graph needs it, as with one launch per scale (:func:`_shared_once`
+    with a node of its own per item)."""
+    return [_shared_once([item], lambda one: [make(*one[0])], k)[0]
+            for k, item in enumerate(items)]
 
 
 class StereoSample(torch.autograd.Function):
-    """``_stereo_sample_chw``'s custom VJP for one scale whose forward is
-    already made: ``apply(src, u, dmax, out)`` with out = K1(src, u)
-    returns ``out``; src (B,C,H,W), u (B,H,W), ``dmax`` and ``out`` not
-    differentiable. Backward K2 for u and, only when the source needs a
-    gradient, K3. Made by :func:`stereo_sample_grouped`."""
+    """``_stereo_sample_chw``'s custom VJP for n scales whose forwards are
+    already made, as one node: ``apply(dmaxs, *srcs, *us, *outs)`` with
+    outs[k] = K1(srcs[k], us[k]) returns the outs; srcs[k] (B,C,H,W),
+    us[k] (B,H,W), ``dmaxs[k]`` bounds K3. The backward runs one K2 launch
+    over the scales whose output got a cotangent and whose u needs a
+    gradient and, for each such scale whose source needs a gradient, K3.
+    Made by :func:`stereo_sample_grouped`."""
 
     @staticmethod
-    def forward(ctx, src, u, dmax, out):
-        ctx.dmax = dmax
-        ctx.save_for_backward(src, u)
-        return out
+    def forward(ctx, dmaxs, *tensors):
+        n = len(dmaxs)
+        ctx.dmaxs = dmaxs
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*tensors[:2 * n])
+        return tensors[2 * n:]
 
     @staticmethod
-    def backward(ctx, g):
-        src, u = ctx.saved_tensors
-        g = g.contiguous()
-        d_src = stereo_bwd_src(g, u, ctx.dmax) if ctx.needs_input_grad[0] else None
-        d_u = stereo_bwd_u(src, g, u) if ctx.needs_input_grad[1] else None
-        return d_src, d_u, None, None
+    def backward(ctx, *gs):
+        n = len(ctx.dmaxs)
+        srcs, us = ctx.saved_tensors[:n], ctx.saved_tensors[n:]
+        need_src, need_u = ctx.needs_input_grad[1:n + 1], ctx.needs_input_grad[n + 1:2 * n + 1]
+        gs = [None if g is None else g.contiguous() for g in gs]
+        d_srcs = [stereo_bwd_src(g, u, dmax) if g is not None and need else None
+                  for g, u, dmax, need in zip(gs, us, ctx.dmaxs, need_src)]
+        d_us = [None] * n
+        ks = [k for k in range(n) if gs[k] is not None and need_u[k]]
+        if ks:
+            d_ks = stereo_bwd_u_grouped([srcs[k] for k in ks], [gs[k] for k in ks],
+                                        [us[k] for k in ks])
+            for k, d_u in zip(ks, d_ks):
+                d_us[k] = d_u
+        return (None, *d_srcs, *d_us, *[None] * n)
 
 
 def stereo_sample_grouped(srcs: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
                           dmaxs: Sequence) -> list[Callable[[], torch.Tensor]]:
     """K1 of each scale k (``srcs[k]``, ``us[k]``; ``dmaxs[k]`` bounds K3)
     in one grouped forward launch, made now. Item k of the result is a
-    call, to be made once, that returns scale k's output behind its own
-    :class:`StereoSample`."""
+    call, to be made once, that returns scale k's output behind a
+    :class:`StereoSample`: the last (finest) scale's own, or one shared by
+    all earlier (coarse) scales, made by the first of their calls."""
     with torch.no_grad():
         outs = stereo_sample_pyramid(srcs, us)
-    return _taken_once(zip(srcs, us, dmaxs, outs), StereoSample.apply)
+    items = list(zip(srcs, us, dmaxs, outs))
+
+    def make(scales):
+        s, u, dmax, out = zip(*scales)
+        return StereoSample.apply(dmax, *s, *u, *out)
+
+    return _shared_once(items[:-1], make) + _shared_once(items[-1:], make, len(items) - 1)
 
 
 # --------------------------------------------------------------------------
@@ -464,8 +527,9 @@ def gen_sample_pyramid_cuda(srcs: Sequence[torch.Tensor], us: Sequence[torch.Ten
         d_auxs = [torch.empty_like(s) for s in srcs]
     else:
         s_auxs = d_auxs = [None] * len(srcs)
-    _launch_fwd("gen_fwd_aux" if emit_grad_aux else "gen_fwd", _kernels().depthvo_gen_fwd,
-                plans, srcs, us, vs, outs, s_auxs, d_auxs, int(emit_grad_aux))
+    _launch_table("gen_fwd_aux" if emit_grad_aux else "gen_fwd", _kernels().depthvo_gen_fwd,
+                  plans, int(emit_grad_aux), src=srcs, u=us, v=vs, out=outs, s_aux=s_auxs,
+                  d_aux=d_auxs)
     return list(zip(outs, s_auxs, d_auxs)) if emit_grad_aux else outs
 
 

@@ -135,9 +135,11 @@ def compute_losses(config: ExperimentConfig, models: Models,
 
     # One grouped stereo warp over every scale, one grouped general warp
     # over the temporal scales and (unless the feature net trains) the
-    # fused finest payload. Each scale's gradient node is made below,
-    # where its loss is, so autograd runs it right after that loss's
-    # backward, as with one warp launch per scale.
+    # fused finest payload. The gradient nodes are made below, where the
+    # losses are, so autograd runs each right after its loss's backward,
+    # as with one warp launch per scale; the stereo warp's coarse scales
+    # share one node, made at the coarsest loss, which runs one K2 launch
+    # after all their losses' backwards.
     if config.use_stereo:
         stereo = ops.stereo_warp_pyramid_chw(
             [at_scale(image_r_chw, h, w) for h, w in hws], depths,

@@ -35,8 +35,8 @@ from depthvo_tpu_torch.ops import warp_kernels
 from depthvo_tpu_torch.train import loop
 from depthvo_tpu_torch.train.state import build_models, create_state, init_params, load_params
 
-WARP_KERNELS = ("stereo_fwd_pyramid_kernel", "stereo_bwd_u_kernel", "stereo_bwd_src_kernel",
-                "gen_fwd_pyramid_kernel", "gen_bwd_uv_kernel")
+WARP_KERNELS = ("stereo_fwd_pyramid_kernel", "stereo_bwd_u_pyramid_kernel",
+                "stereo_bwd_src_kernel", "gen_fwd_pyramid_kernel", "gen_bwd_uv_kernel")
 _CATEGORIES = (
     ("warp_kernels", WARP_KERNELS),
     ("memcpy", ("memcpy",)),

@@ -15,6 +15,7 @@ from depthvo_tpu.geometry import camera as jcam, se3 as jse3, warp as jwarp
 from depthvo_tpu_torch.geometry import camera as tcam, se3 as tse3, warp as twarp
 
 torch.set_num_threads(2)
+torch.exp(torch.zeros(1))  # MKL's first call on one thread (test_torch_models.py)
 
 
 def _twists(rng, n=16):

@@ -10,6 +10,7 @@ from depthvo_tpu.losses import photometric as jphoto, smoothness as jsmooth
 from depthvo_tpu_torch.losses import photometric as tphoto, smoothness as tsmooth
 
 torch.set_num_threads(2)
+torch.exp(torch.zeros(1))  # MKL's first call on one thread (test_torch_models.py)
 
 
 def _inputs(rng, B=2, C=3, H=16, W=40):

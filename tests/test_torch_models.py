@@ -25,6 +25,12 @@ from depthvo_tpu_torch.models.depth_net import DepthNet
 from depthvo_tpu_torch.train.state import build_models
 
 torch.set_num_threads(2)
+# MKL's vector math (torch.exp, sqrt, log, tanh ... on the CPU) sets itself up
+# on its first call in the process. When that call is split across threads,
+# the other threads' share can come out at 12-bit accuracy (measured: the
+# worker's half of FeatNet's first sqrt was x * rsqrtps(x) bit for bit). So
+# the first call takes one element, on one thread.
+torch.exp(torch.zeros(1))
 
 RTOL = 2e-5
 

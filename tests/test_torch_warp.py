@@ -28,6 +28,7 @@ from depthvo_tpu_torch.geometry import warp as twarp
 from depthvo_tpu_torch.ops import warp_kernels
 
 torch.set_num_threads(2)
+torch.exp(torch.zeros(1))  # MKL's first call on one thread (test_torch_models.py)
 
 FXB = 74.0 * 0.54
 
@@ -225,13 +226,13 @@ def test_kernel_library_must_lay_out_the_forwards_as_pack_segments_does(monkeypa
 # --------------------------------------------------------------------------
 
 
-def _stored_pixels(plans):
-    """Flat indices of the pixels stored by the threads of a grouped
-    launch over ``plans``, as ``csrc/warp.cu``'s ``segment_of`` and
-    ``pixel_at`` compute them: the segment by the blocks' ends; then
-    pixel k of a thread is q0 + 32 k in the segment's run of B*H*W
-    pixels, q0 = 32 FWD_PIX (warp) + lane; pixels past the run store
-    nothing. Pixel q of segment s is ``first[s] + q``."""
+def _thread_pixels(plans):
+    """(segment, q) of pixel k of every thread of a grouped launch over
+    ``plans``, as ``csrc/warp.cu``'s ``segment_of`` and ``pixel_at``
+    compute them: the segment by the blocks' ends; then pixel k of a
+    thread is q0 + 32 k in the segment's run of B*H*W pixels, q0 = 32
+    FWD_PIX (warp) + lane. q may lie past the run: such a pixel is
+    computed and not stored."""
     T, P, n = warp_kernels.FWD_THREADS, warp_kernels.FWD_PIX, len(plans)
     ends = [pl.block_end for pl in plans]
     blk = np.repeat(np.arange(ends[-1]), T)
@@ -241,10 +242,17 @@ def _stored_pixels(plans):
     g = (blk - np.array([0] + ends[:-1])[s]) * T + thread
     lane = g % 32
     q0 = (g - lane) * P + lane
+    return np.tile(s, P), np.concatenate([q0 + 32 * k for k in range(P)])
+
+
+def _stored_pixels(plans):
+    """Flat indices of the pixels stored by the threads of a grouped
+    launch over ``plans`` (:func:`_thread_pixels`); pixels past a
+    segment's run store nothing. Pixel q of segment s is ``first[s] + q``."""
+    s, q = _thread_pixels(plans)
     pixels = np.array([pl.B * pl.H * pl.W for pl in plans])
     first = np.cumsum([0, *pixels])
-    stored = [(first[s] + q0 + 32 * k)[q0 + 32 * k < pixels[s]] for k in range(P)]
-    return np.concatenate(stored), first[-1]
+    return (first[s] + q)[q < pixels[s]], first[-1]
 
 
 @pytest.mark.parametrize("shapes", [
@@ -523,7 +531,7 @@ def test_frozen_gen_sample_saves_only_the_source(rng):
 
 @pytest.mark.parametrize("wrapper", ["stereo_bwd_u", "stereo_bwd_src", "gen_fwd_aux",
                                      "gen_bwd_uv", "stereo_fwd_pyramid", "gen_fwd_pyramid",
-                                     "gen_fwd_aux_pyramid"])
+                                     "gen_fwd_aux_pyramid", "stereo_bwd_u_grouped"])
 def test_new_cuda_wrappers_refuse_cpu_tensors(wrapper):
     src = torch.zeros(1, 3, 8, 16)
     u = torch.zeros(1, 8, 16)
@@ -537,6 +545,8 @@ def test_new_cuda_wrappers_refuse_cpu_tensors(wrapper):
                                                                         [u] * 4),
         "gen_fwd_aux_pyramid": lambda: warp_kernels.gen_sample_pyramid_cuda(
             [src] * 2, [u] * 2, [u] * 2, emit_grad_aux=True),
+        "stereo_bwd_u_grouped": lambda: warp_kernels.stereo_bwd_u_grouped_cuda(
+            [src] * 3, [src] * 3, [u] * 3),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
@@ -625,17 +635,21 @@ def _grouped(rng, family, shapes, need=None):
 def test_pyramid_functions_run_the_backward_only_where_a_cotangent_arrives(
         rng, monkeypatch, family):
     """Only the middle scale's output reaches the loss: its backward
-    kernel runs once, the other scales get no gradient."""
+    kernel runs once (for the stereo family, the coarse scales' launch
+    over that scale alone), the other scales get no gradient."""
     shapes = [(3, 4, 12), (19, 6, 10), (3, 8, 16)]
-    bwd = "stereo_bwd_u" if family == "stereo" else "gen_bwd_uv"
+    stereo = family == "stereo"
+    bwd = "stereo_bwd_u_grouped" if stereo else "gen_bwd_uv"
     calls = []
     real = getattr(warp_kernels, bwd)
-    monkeypatch.setattr(warp_kernels, bwd, lambda *a: calls.append(a[0].shape) or real(*a))
+    monkeypatch.setattr(warp_kernels, bwd, lambda *a: calls.append(
+        [s.shape for s in a[0]] if stereo else a[0].shape) or real(*a))
     makers, _, us = _grouped(rng, family, shapes)
     outs = [make() for make in makers]
     assert [tuple(o.shape[1:]) for o in outs] == shapes
     outs[1].sum().backward()
-    assert calls == [torch.Size((2, 19, 6, 10))]
+    one = torch.Size((2, 19, 6, 10))
+    assert calls == ([[one]] if stereo else [one])
     assert us[0].grad is None and us[2].grad is None and us[1].grad.abs().max() > 0
 
 
@@ -694,22 +708,214 @@ class _Probe(torch.autograd.Function):
 
 @pytest.mark.parametrize("family", ["stereo", "gen"])
 def test_each_scale_backward_runs_right_after_its_loss(rng, monkeypatch, family):
-    """One forward launch for all scales, one gradient node per scale:
-    with each node made where its scale's loss is built, as the loss graph
-    does, each scale's backward kernel runs (and frees its cotangent)
-    right after that loss's backward, before the earlier scales' losses,
-    as with one launch per scale."""
+    """One forward launch for all scales. With each scale's call made
+    where its loss is built, as the loss graph does: the general warp has
+    one gradient node per scale, and each scale's backward kernel runs
+    (and frees its cotangent) right after that loss's backward, before the
+    earlier scales' losses, as with one launch per scale. The stereo warp
+    has a node for the finest scale, whose K2 runs right after the finest
+    loss, and one for the coarse scales, made at the coarsest loss, whose
+    one K2 launch runs after all the coarse losses."""
     shapes = [(3, 4, 12), (19, 6, 10), (3, 8, 16)]
-    bwd = "stereo_bwd_u" if family == "stereo" else "gen_bwd_uv"
     log = []
+    if family == "stereo":
+        bwd = "stereo_bwd_u_grouped"
+        tag = lambda a: f"stereo_bwd_u {[s.shape[1] for s in a[0]]}"  # noqa: E731
+        want = ["loss 2", "stereo_bwd_u [3]", "loss 1", "loss 0", "stereo_bwd_u [3, 19]"]
+    else:
+        bwd = "gen_bwd_uv"
+        tag = lambda a: f"gen_bwd_uv {a[0].shape[1]}"  # noqa: E731
+        want = [entry for k in (2, 1, 0) for entry in (f"loss {k}", f"gen_bwd_uv {shapes[k][0]}")]
     real = getattr(warp_kernels, bwd)
-    monkeypatch.setattr(warp_kernels, bwd,
-                        lambda *a: log.append(f"{bwd} {a[0].shape[1]}") or real(*a))
+    monkeypatch.setattr(warp_kernels, bwd, lambda *a: log.append(tag(a)) or real(*a))
     makers, _, us = _grouped(rng, family, shapes)
     total = 0.0
     for k, make in enumerate(makers):
         total = total + (_Probe.apply(make(), log, f"loss {k}") ** 2).sum()
     total.backward()
-    assert log == [entry for k in (2, 1, 0)
-                   for entry in (f"loss {k}", f"{bwd} {shapes[k][0]}")]
+    assert log == want
     assert all(u.grad.abs().max() > 0 for u in us)
+
+
+# --------------------------------------------------------------------------
+# K2 over a group of segments: the coarse scales share one node and one
+# launch. Tolerances as above (1e-5 absolute against jax.vjp of the
+# reference's per-scale custom VJP); the plain and the simulated kernel
+# are held bit for bit.
+# --------------------------------------------------------------------------
+
+# C, H, W, dmax: H*W odd or not a multiple of the block, C = 1 and 19
+STEREO_RAGGED = [(3, 5, 37, 8), (1, 9, 75, 16), (19, 10, 150, 32), (3, 13, 128, 24)]
+
+
+def test_stereo_coarse_node_matches_pallas_per_scale(rng):
+    """Four ragged scales taken in the loss's order (coarsest first): the
+    three coarse scales' shared node and the finest scale's own give each
+    scale's d_u and, where the source needs a gradient, its d_src, as the
+    reference's per-scale VJP does."""
+    import jax
+
+    B = 2
+    need_src = [True, False, True, False]
+    srcs, us, gs, refs = [], [], [], []
+    for (C, H, W, dmax), need in zip(STEREO_RAGGED, need_src):
+        src = rng.normal(size=(B, C, H, W)).astype(np.float32)
+        depth = rng.uniform(1.5, 40.0, (B, H, W)).astype(np.float32)
+        disp, u = warp_pallas.stereo_disparity_u(depth, FXB * W / 150, W)
+        valid = np.array(warp_pallas.stereo_valid_mask(depth, disp, u, H, W, dmax))
+        g = _masked_cotangent(rng, src.shape, valid)
+        _, vjp = jax.vjp(lambda s, uu, d=dmax: warp_pallas._stereo_sample_chw(s, uu, d), src, u)
+        refs.append(vjp(g))
+        srcs.append(_t(src).requires_grad_(need))
+        us.append(_t(u).requires_grad_(True))
+        gs.append(_t(g))
+    makers = warp_kernels.stereo_sample_grouped(srcs, us, [d for *_, d in STEREO_RAGGED])
+    outs = [make() for make in makers]
+    assert len({o.grad_fn for o in outs[:-1]}) == 1 and outs[-1].grad_fn != outs[0].grad_fn
+    torch.autograd.backward(outs, gs)
+    for src, u, need, (ref_dsrc, ref_du) in zip(srcs, us, need_src, refs):
+        np.testing.assert_allclose(u.grad.numpy(), np.asarray(ref_du), rtol=0, atol=1e-5)
+        assert np.abs(np.asarray(ref_du)).max() > 0.1
+        if need:
+            np.testing.assert_allclose(src.grad.numpy(), np.asarray(ref_dsrc), rtol=0, atol=1e-5)
+        else:
+            assert src.grad is None
+
+
+def test_stereo_bwd_u_grouped_on_the_cpu_is_the_plain_version_per_segment(rng):
+    """Bit for bit, on a dense cotangent and sample columns past both
+    edges."""
+    srcs = [_t(rng.normal(size=(2, C, H, W))) for C, H, W, _ in STEREO_RAGGED]
+    gs = [_t(rng.normal(size=s.shape)) for s in srcs]
+    us = [_t(rng.uniform(-3.0, W + 2.0, (2, H, W))) for _, H, W, _ in STEREO_RAGGED]
+    got = warp_kernels.stereo_bwd_u_grouped(srcs, gs, us)
+    assert len(got) == len(srcs)
+    for d_u, src, g, u in zip(got, srcs, gs, us):
+        assert torch.equal(d_u, warp_kernels.stereo_bwd_u_plain(src, g, u))
+        assert d_u.abs().max() > 0.1
+
+
+def _simulated_stereo_bwd_u(srcs, gs, us):
+    """``csrc/warp.cu``'s stereo_bwd_u_pyramid_kernel run in numpy, thread
+    by thread of the grouped launch (:func:`_thread_pixels`): each thread
+    clamps its pixel to the segment, recomputes the taps, reads g and both
+    taps of channel min(c, C-1) for kStereoChan (3) channels at a time and
+    sums g * (s1 - s0) in float32 in channel order; a pixel past the end
+    stores nothing. Returns d_u per segment and how often each of its
+    pixels was stored."""
+    plans = warp_kernels.pack_segments([tuple(s.shape) for s in srcs])
+    seg, q = _thread_pixels(plans)
+    d_us = [np.full(u.shape, np.nan, np.float32).reshape(-1) for u in us]
+    counts = [np.zeros(u.numel(), int) for u in us]
+    for s, (pl, src, g, u) in enumerate(zip(plans, srcs, gs, us)):
+        C, H, W = pl.C, pl.H, pl.W
+        HW, pixels = H * W, pl.B * H * W
+        qs = q[seg == s]
+        qc = np.minimum(qs, pixels - 1)
+        b = qc // HW
+        p = qc - b * HW
+        uc = np.clip(u.numpy().reshape(-1)[qc], np.float32(0), np.float32(W - 1))
+        x0 = np.floor(uc).astype(np.int64)
+        gp = b * C * HW + p
+        t0 = gp - p % W + x0
+        dx = (x0 + 1 < W).astype(np.int64)
+        flat_g, flat_src = g.numpy().reshape(-1), src.numpy().reshape(-1)
+        acc = np.zeros(qs.shape, np.float32)
+        for c in range(-(-C // 3) * 3):
+            plane = min(c, C - 1) * HW
+            gv, s0, s1 = flat_g[plane + gp], flat_src[plane + t0], flat_src[plane + t0 + dx]
+            if c < C:
+                acc = (acc + gv * (s1 - s0)).astype(np.float32)
+        stored = qs < pixels
+        d_us[s][qs[stored]] = acc[stored]
+        np.add.at(counts[s], qs[stored], 1)
+    return [d.reshape(u.shape) for d, u in zip(d_us, us)], counts
+
+
+@pytest.mark.parametrize("shapes", [
+    [(2, C, H, W) for C, H, W, _ in STEREO_RAGGED],
+    # a one-pixel-wide and a one-pixel segment
+    [(3, 1, 9, 1), (1, 3, 1, 1), (2, 19, 7, 33)],
+])
+def test_stereo_bwd_u_launch_table_stores_every_pixel_once_and_equals_plain(rng, shapes):
+    """The grouped K2 launch, simulated thread by thread from the table
+    ``pack_segments`` lays out, stores every pixel of every segment exactly
+    once, and what it stores is the plain version's d_u bit for bit."""
+    srcs = [_t(rng.normal(size=s)) for s in shapes]
+    gs = [_t(rng.normal(size=s)) for s in shapes]
+    us = [_t(rng.uniform(-3.0, W + 2.0, (B, H, W))) for B, _, H, W in shapes]
+    d_us, counts = _simulated_stereo_bwd_u(srcs, gs, us)
+    for d_u, count, src, g, u in zip(d_us, counts, srcs, gs, us):
+        np.testing.assert_array_equal(count, np.ones_like(count))
+        np.testing.assert_array_equal(d_u, warp_kernels.stereo_bwd_u_plain(src, g, u).numpy())
+
+
+def test_grouped_stereo_bwd_u_refuses_what_the_kernel_does_not_take():
+    """Before building or launching anything: more than MAX_SEGMENTS
+    segments, a segment without its cotangent, a cotangent or u of
+    another shape than its source's, and CPU tensors."""
+    src = torch.zeros(1, 3, 8, 16)
+    u = torch.zeros(1, 8, 16)
+    n = warp_kernels.MAX_SEGMENTS + 1
+    with pytest.raises(ValueError, match="1 to 8 segments"):
+        warp_kernels.stereo_bwd_u_grouped_cuda([src] * n, [src] * n, [u] * n)
+    with pytest.raises(ValueError, match="its cotangent"):
+        warp_kernels.stereo_bwd_u_grouped_cuda([src, src], [src], [u, u])
+    with pytest.raises(ValueError, match=r"g\[1\] must have shape \(1, 3, 8, 16\)"):
+        warp_kernels.stereo_bwd_u_grouped_cuda([src, src], [src, src[:, :1]], [u, u])
+    with pytest.raises(ValueError, match=r"u\[0\] must have shape \(1, 8, 16\)"):
+        warp_kernels.stereo_bwd_u_grouped_cuda([src, src], [src, src], [u[:, :4], u])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        warp_kernels.stereo_bwd_u_grouped_cuda([src, src], [src, src], [u, u])
+    assert warp_kernels.launch_count("stereo_bwd_u") == 0
+
+
+@pytest.mark.parametrize("mode", ["enable_grad", "no_grad", "inference_mode"])
+def test_coarse_scale_taken_after_the_shared_node_is_held_only_until_taken(rng, mode):
+    """The coarsest scale's call makes the coarse scales' node (with a
+    graph) or returns its output (without one). The middle scale's output
+    is then held by its call alone: once taken and dropped by the caller
+    it goes, while the coarsest output and its graph live on; its source
+    and u go with that graph at the latest."""
+    import weakref
+
+    with getattr(torch, mode)():
+        makers, srcs, us = _grouped(rng, "stereo", [(3, 4, 12), (19, 6, 10), (3, 8, 16)])
+        out0 = makers[0]()
+        kept = [weakref.ref(t) for t in (srcs[1], us[1])]
+        del srcs, us
+        out1 = makers[1]()
+        assert out1.shape[1:] == (19, 6, 10)
+        kept.append(weakref.ref(out1 if out1._base is None else out1._base))
+        del out1
+        assert kept[2]() is None
+        with pytest.raises(RuntimeError, match="scale 1 was taken already"):
+            makers[1]()
+        del out0
+        assert [k() for k in kept] == [None] * 3
+        assert makers[2]().shape[1:] == (3, 8, 16)
+
+
+def test_four_scale_train_loss_makes_two_stereo_bwd_u_launches(monkeypatch):
+    """``compute_losses(train=True)`` at 4 scales, backward: one K2 call
+    for the finest scale and then one over the three coarse scales."""
+    import dataclasses
+
+    from depthvo_tpu_torch import configs as tconfigs
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.train import loop as tloop, state as tstate
+
+    calls = []
+    real = warp_kernels.stereo_bwd_u_grouped
+    monkeypatch.setattr(warp_kernels, "stereo_bwd_u_grouped",
+                        lambda *a: calls.append([tuple(s.shape[2:]) for s in a[0]]) or real(*a))
+    cfg = tconfigs.tiny_test()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, num_scales=4))
+    models = tstate.load_params(tstate.build_models(cfg), tstate.init_params(
+        cfg, torch.Generator().manual_seed(0)), torch.device("cpu"))
+    batch = tloop.batch_to_device(SyntheticScenes(cfg, seed=3, num_scenes=2).fixed_batch(2),
+                                  torch.device("cpu"))
+    total, _ = tloop.compute_losses(cfg, models, batch, train=True)
+    assert calls == []
+    total.backward()
+    assert calls == [[(32, 96)], [(4, 12), (8, 24), (16, 48)]]
