@@ -73,7 +73,27 @@ with a nonzero exit code:
              gen_fwd_aux or stereo_bwd_src per step), finite losses, and
              ms/step, frames/s and peak memory over 12 steady steps on
              pre-made batches.
-6. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
+6. kitti_ckpt - the training path users run, in a temporary directory: a
+             KITTI raw drive (9 frames per camera at 1242x375, PNGs written
+             with zlib, calib with P_rect_02/03 and S_rect_02); ``cli train
+             --kitti-root ... --native-ring 1 --checkpoint-dir C`` for 2
+             steps through the native decode ring and the pinned-buffer
+             prefetch (the main path: counts reset just before and read
+             just after, the train phase's launches per step; one step
+             directory and config.json); the same command with 4 steps
+             resumes at step 2 and logs steps 2 and 3 only, and the batches
+             its step receives equal the host's; a checkpoint saved on the
+             card and restored into a fresh state is equal bit for bit
+             (every parameter, BatchNorm buffer and solver tensor, and the
+             step); ``temporal_stereo --init-from C`` starts from C's depth
+             and odometry weights; ``cli test --checkpoint-dir C`` prints
+             finite terms; ``DepthVO.from_checkpoint(C)`` depth card vs CPU
+             (float32, TF32 off) <= 1e-4 relative. Recorded, not claimed:
+             ms/step from disk beside the train phase's pre-made batches,
+             the same over 13 steady steps of a 14-step run, the host
+             ring's ms per batch, the checkpoint's bytes and its
+             save and restore ms, beside the card's name and power limit.
+7. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
              uint8 batch and pose of its frame pairs; shapes, finiteness
              and latency.
 
@@ -800,7 +820,254 @@ def phase_train(variant: str, dev):
     out["bf16"] = {"ms_per_step": ms, "frames_per_s": BATCH * 1e3 / ms, "steps": n,
                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     emit(out)
-    return launches
+    return launches, ms
+
+
+KITTI_HW = (375, 1242)  # the rectified size of KITTI raw's 2011_09_26 drives
+KITTI_FRAMES = 9
+
+
+def write_png(path, rgb) -> None:
+    """A (H, W, 3) uint8 array as an 8-bit RGB PNG, filter 0 on every
+    row (zlib and struct only: the card's machine may have no PIL)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_kitti_raw(root: str, cfg) -> str:
+    """One KITTI raw drive: ``KITTI_FRAMES`` frames per camera at
+    375x1242, rendered from the port's synthetic scenes (frame i is scene
+    i's target view on the left camera and its stereo view on the right),
+    and a ``calib_cam_to_cam.txt`` with KITTI's 2011_09_26 rectified
+    projections (a 0.537 m baseline) and size. Returns the drive's name."""
+    import os
+
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+
+    date, drive = "2011_09_26", "2011_09_26_drive_0001_sync"
+    big = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, height=KITTI_HW[0], width=KITTI_HW[1]))
+    frames = SyntheticScenes(big, seed=21, num_scenes=KITTI_FRAMES, u8=True
+                             ).fixed_batch(KITTI_FRAMES)
+    for cam, key in (("image_02", "image_t"), ("image_03", "image_r")):
+        d = os.path.join(root, date, drive, cam, "data")
+        os.makedirs(d)
+        for i in range(KITTI_FRAMES):
+            write_png(os.path.join(d, f"{i:010d}.png"), frames[key][i])
+    fx, cx, cy = 7.215377e02, 6.095593e02, 1.728540e02
+    with open(os.path.join(root, date, "calib_cam_to_cam.txt"), "w") as f:
+        f.write(f"S_rect_02: {KITTI_HW[1]:.6e} {KITTI_HW[0]:.6e}\n")
+        for cam, tx in (("02", 4.485728e01), ("03", -3.395242e02)):
+            f.write(f"P_rect_{cam}: {fx:e} 0 {cx:e} {tx:e} 0 {fx:e} {cy:e} 2.163791e-01 "
+                    "0 0 1 2.745884e-03\n")
+    return drive
+
+
+def phase_kitti_ckpt(variant: str, dev, smi: str, premade_ms: float):
+    """The training path users run: ``cli train`` on a KITTI raw tree
+    (native decode ring, prefetch through pinned buffers and a side
+    stream) with a checkpoint directory; the same command resumes; a
+    checkpoint round trip on the card; stage 2 initialised from it; then
+    ``cli test`` and ``DepthVO.from_checkpoint`` from it."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depthvo_tpu_torch import DepthVO, cli, configs
+    from depthvo_tpu_torch.configs import base as config_base
+    from depthvo_tpu_torch.data import kitti
+    from depthvo_tpu_torch.io import checkpoint as ckpt
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+    from depthvo_tpu_torch.train import loop, state as tstate
+
+    cfg = getattr(configs, variant)(batch_size=BATCH)
+    out = {"phase": "kitti_ckpt", "config": variant, "nvidia_smi": smi,
+           "kitti_hw": list(KITTI_HW), "frames": KITTI_FRAMES}
+    tmp = tempfile.TemporaryDirectory(prefix="kitti_ckpt-")
+    root, ck = os.path.join(tmp.name, "kitti"), os.path.join(tmp.name, "ck")
+    drive = write_kitti_raw(root, cfg)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def train(steps, *extra):
+        argv = ["train", "--variant", variant, "--kitti-root", root, "--drives", drive,
+                "--steps", str(steps), "--batch-size", str(BATCH), "--device", "cuda",
+                "--native-ring", "1", "--log-every", "1", *extra]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(argv)
+        seconds = time.perf_counter() - t0
+        lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")]
+        logged = [dict(kv.split("=") for kv in ln.split(": ", 1)[1].split()) for ln in lines]
+        steps_seen = [int(ln.split(":")[0].split()[1]) for ln in lines]
+        if rc != 0 or not all(math.isfinite(float(v)) for m in logged for v in m.values()):
+            raise AssertionError(f"cli train failed: rc {rc}, {lines}")
+        return argv, steps_seen, logged, seconds
+
+    # (2) Train 2 steps from disk and snapshot: the main path.
+    wk.reset_launches()
+    argv, seen, logged, seconds = train(2, "--checkpoint-dir", ck)
+    launches = _check_counts(_train_launches(cfg), 2)
+    mgr = ckpt.make_manager(ck)
+    if seen != [0, 1] or mgr.all_steps() != [2] or not os.path.isfile(
+            os.path.join(ck, "config.json")):
+        raise AssertionError(f"train: steps {seen}, checkpoints {mgr.all_steps()}")
+    out["main_path"] = {"argv": argv, "launches": launches,
+                        "losses": [{k: float(m[k]) for k in m if k.startswith("loss/")}
+                                   for m in logged]}
+    out["from_disk"] = {"cli_seconds": seconds,
+                        "ms_per_step_second_step": 1e3 / float(logged[-1]["steps_per_sec"]),
+                        "premade_ms_per_step": premade_ms}
+
+    # (3) Resume with the same command and 4 steps; the batches the step
+    # receives (prefetched on the side stream) equal the host's.
+    host_it = kitti.KittiRawStereo(root, [drive], cfg.model.height, cfg.model.width,
+                                   u8=True).iterator(BATCH, seed=cfg.seed, native_ring=True)
+    host = [next(host_it) for _ in range(2)]
+    host_it.close()
+    seen_batches = []
+    real_to_device = loop.batch_to_device
+
+    def spy(batch, device):
+        b = real_to_device(batch, device)
+        seen_batches.append({k: v.cpu() for k, v in b.items()})
+        return b
+
+    loop.batch_to_device = spy
+    try:
+        wk.reset_launches()
+        _, seen, _, _ = train(4, "--checkpoint-dir", ck)
+        _check_counts(_train_launches(cfg), 2)
+    finally:
+        loop.batch_to_device = real_to_device
+    if seen != [2, 3] or mgr.all_steps() != [2, 4]:
+        raise AssertionError(f"resume: steps {seen}, checkpoints {mgr.all_steps()}")
+    for got, want in zip(seen_batches, host):
+        for k, v in want.items():
+            if not torch.equal(got[k], torch.as_tensor(v)):
+                raise AssertionError(f"prefetched batch differs from the host's in {k}")
+    if len(seen_batches) != 2:
+        raise AssertionError(f"{len(seen_batches)} batches reached the step")
+    out["resume"] = {"steps": seen, "checkpoints": mgr.all_steps(),
+                     "prefetched_batches_equal_host": len(seen_batches)}
+
+    # (4) Round trip on the card, bit for bit.
+    state = ckpt.maybe_restore(mgr, tstate.create_state(cfg, dev))
+    mgr2 = ckpt.make_manager(os.path.join(tmp.name, "ck2"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save(mgr2, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = tstate.create_state(cfg, dev, torch.Generator().manual_seed(99))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = ckpt.maybe_restore(mgr2, fresh)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    a, b = tstate.state_dict(state), tstate.state_dict(fresh)
+    pairs = [(a["nets"][n][k], b["nets"][n][k]) for n in a["nets"] for k in a["nets"][n]]
+
+    def leaves(t):
+        return [t] if not isinstance(t, (tuple, list)) else [x for y in t for x in leaves(y)]
+
+    pairs += list(zip(leaves(a["opt_state"]), leaves(b["opt_state"])))
+    if a["step"] != b["step"] or not all(
+            torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in pairs):
+        raise AssertionError("the checkpoint round trip on the card is not exact")
+    out["checkpoint"] = {"step": b["step"], "tensors_equal": len(pairs),
+                         "bytes": os.path.getsize(os.path.join(path, ckpt.STATE_FILE)),
+                         "save_ms": save_ms, "restore_ms": restore_ms}
+    del state, fresh, a, b, pairs
+
+    # (5) Stage 2 from the checkpoint: its networks' weights before its
+    # first step are the checkpoint's.
+    saved = torch.load(os.path.join(ck, "4", ckpt.STATE_FILE), weights_only=True)["nets"]
+    before = {}
+    real_step = loop.make_train_step
+
+    def first_weights(config, device=None):
+        step_fn = real_step(config, device)
+
+        def wrapped(st, batch):
+            if not before:
+                before.update({n: {k: v.detach().to("cpu", copy=True) for k, v in
+                                   getattr(st.models, n).state_dict().items()}
+                               for n in ("depth", "odom")})
+            return step_fn(st, batch)
+
+        return wrapped
+
+    loop.make_train_step = first_weights
+    try:
+        # (stage 2 of full_feat's recipe; a smaller variant rehearses with itself)
+        stage2 = "temporal_stereo" if variant == "full_feat" else variant
+        argv2 = ["train", "--variant", stage2, "--kitti-root", root, "--drives",
+                 drive, "--steps", "1", "--batch-size", str(BATCH), "--device", "cuda",
+                 "--native-ring", "1", "--init-from", ck]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv2)
+    finally:
+        loop.make_train_step = real_step
+    if rc != 0 or not all(torch.equal(before[n][k], saved[n][k])
+                          for n in before for k in before[n]):
+        raise AssertionError("stage 2 did not start from the checkpoint's weights")
+    out["staged_init"] = {"argv": argv2, "nets_equal": sorted(before)}
+
+    # (6) `cli test` and DepthVO from the checkpoint.
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["test", "--checkpoint-dir", ck, "--iterations", "2", "--device", "cuda"])
+    text = printed.getvalue()
+    metrics = json.loads(text[text.index("{"):])
+    if rc != 0 or not metrics or not all(map(math.isfinite, metrics.values())):
+        raise AssertionError(f"cli test from the checkpoint failed: rc {rc}, {metrics}")
+    out["test"] = metrics
+    cfg32 = _f32_config(config_base.load_json(os.path.join(ck, "config.json")))
+    torch.backends.cudnn.allow_tf32 = False
+    images = host[0]["image_t"][:2]
+    depth = {d: DepthVO.from_checkpoint(ck, cfg32, device=d).depth(images)
+             for d in ("cuda", "cpu")}
+    torch.backends.cudnn.allow_tf32 = True
+    rel = float(np.abs(depth["cuda"] - depth["cpu"]).max() / np.abs(depth["cpu"]).max())
+    if not rel <= METRIC_RTOL:
+        raise AssertionError(f"depth from the checkpoint, card vs CPU: {rel}")
+    out["from_checkpoint_depth_card_vs_cpu_rel"] = rel
+
+    # (7) Steady steps from disk (no checkpoint, no per-step host read):
+    # whether the ring and the upload keep up with the step.
+    _, seen, logged, _ = train(14, "--log-every", "100")
+    out["from_disk"]["ms_per_step_13_steady"] = 1e3 / float(logged[-1]["steps_per_sec"])
+
+    # The host ring alone: ms per batch (decode + resize of 3 x 4
+    # PNGs at 375x1242 -> 160x608 on 4 C++ threads, then the batch join).
+    ring = kitti.KittiRawStereo(root, [drive], cfg.model.height, cfg.model.width,
+                                u8=True).iterator(BATCH, native_ring=True)
+    next(ring)
+    n = 8
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(ring)
+    out["host_ring_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / n
+    ring.close()
+    tmp.cleanup()
+    emit(out)
 
 
 def phase_serve(dev):
@@ -852,7 +1119,8 @@ def main() -> int:
     cfg = full_feat(batch_size=BATCH)
     rows = phase_kernels(_f32_config(cfg), dev)
     phase_slice("full_feat", dev)
-    train_launches = phase_train("full_feat", dev)
+    train_launches, premade_ms = phase_train("full_feat", dev)
+    phase_kitti_ckpt("full_feat", dev, smi, premade_ms)
     phase_serve(dev)
 
     summary = []

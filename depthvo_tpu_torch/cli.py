@@ -1,22 +1,32 @@
 """Command line of the port (counterpart of ``depthvo_tpu/cli.py``).
 
-Two subcommands are ported so far, both on synthetic scenes::
+Three subcommands are ported so far::
 
     python -m depthvo_tpu_torch.cli train --variant full_feat --steps 1000 \\
-        [--batch-size 4] [--seed 0] [--device cuda|cpu] [--log-every N] \\
-        [--eval-every N --eval-steps 10]
-    python -m depthvo_tpu_torch.cli test --variant full_feat --iterations 10 \\
-        [--batch-size 4] [--device cuda|cpu]
+        [--kitti-root R --drives D1,D2 | --kitti-odom-root R --sequences 00,01
+         | --train-list L [--kitti-root R]] [--native-ring 1|0] \\
+        [--checkpoint-dir C] [--init-from C1] [--init-feat-from C2] \\
+        [--batch-size 4] [--height H --width W] [--seed 0] [--device cuda|cpu] \\
+        [--log-every N] [--log-jsonl F] [--eval-every N --eval-steps 10 --val-list L]
+    python -m depthvo_tpu_torch.cli test [--checkpoint-dir C] [--val-list L] \\
+        [--variant full_feat] --iterations 10 [--device cuda|cpu]
+    python -m depthvo_tpu_torch.cli prep --kitti-root R [--drives ...] [--eigen-train] \\
+        | --odom-root R --sequences 00,01  [--height 160 --width 608] --output L
 
-``train`` (the ``caffe train`` analog, the reference's synthetic branch)
-runs ``fit`` from random weights drawn from ``--seed`` and prints the
-loss terms as ``step N: k=v ...`` lines, every ``--log-every`` steps
-(the config's ``log_every`` by default) and after the last, with the
-held-out ``val/...`` terms every ``--eval-every`` steps. ``test`` averages
-the eval-mode loss graph over held-out synthetic batches (the ``caffe
-test`` analog) and prints the same ``val/...`` JSON as the reference's
-``test``. Checkpoints come with a later slice. Both run on the GPU and
-refuse to run without one unless ``--device cpu`` is given.
+``train`` (the ``caffe train`` analog) runs ``fit`` on a KITTI raw tree,
+a KITTI odometry tree, a prepared sample list or, with none of them,
+synthetic scenes, and prints the loss terms as ``step N: k=v ...`` lines
+every ``--log-every`` steps (the config's ``log_every`` by default) and
+after the last, with the held-out ``val/...`` terms every
+``--eval-every`` steps. With ``--checkpoint-dir`` it snapshots there and
+resumes when the same command runs again; ``--init-from`` starts from a
+previous stage's weights and ``--init-feat-from`` takes the feature net
+from another directory. ``test`` averages the eval-mode loss graph over
+held-out batches (the ``caffe test`` analog) of the checkpoint in
+``--checkpoint-dir`` (its ``config.json`` gives the architecture), or of
+random weights, and prints the same ``val/...`` JSON as the reference's
+``test``. ``prep`` writes a sample list. ``train`` and ``test`` run on
+the GPU and refuse to run without one unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -24,95 +34,233 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 import torch
 
 from depthvo_tpu_torch import configs
+from depthvo_tpu_torch.configs import base as config_base
+from depthvo_tpu_torch.data import kitti
+from depthvo_tpu_torch.data.eigen import EIGEN_TEST_SCENES
 from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+from depthvo_tpu_torch.io import checkpoint as ckpt_io
 from depthvo_tpu_torch.train import loop as train_loop
-from depthvo_tpu_torch.train.state import build_models, init_params, load_params
+from depthvo_tpu_torch.train.state import create_state
 from depthvo_tpu_torch.utils.device import resolve_device
 from depthvo_tpu_torch.utils.logging import MetricLogger
 
 VARIANTS = ["stereo", "temporal_stereo", "full_feat", "tiny_test"]
+HELD_OUT_SEED = 1_000_003  # synthetic validation scenes: disjoint from training's
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--variant", default="full_feat", choices=VARIANTS)
+    # None = keep the variant's own resolution (tiny_test is 32x96).
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--checkpoint-dir", default=None)
+
+
+def _make_config(args):
+    cfg = getattr(configs, args.variant)(batch_size=args.batch_size,
+                                         seed=getattr(args, "seed", 0))
+    height = args.height if args.height is not None else cfg.model.height
+    width = args.width if args.width is not None else cfg.model.width
+    if (height, width) != (cfg.model.height, cfg.model.width):
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, height=height, width=width))
+    return cfg
+
+
+def _restore_or_make_config(args):
+    """The checkpoint's saved config.json wins over the flags (it records
+    the trained architecture); else the config from the flags."""
+    if args.checkpoint_dir:
+        path = os.path.join(args.checkpoint_dir, "config.json")
+        if os.path.isfile(path):
+            return config_base.load_json(path)
+    return _make_config(args)
+
+
+def _split(csv: str):
+    return [s.strip() for s in csv.split(",") if s.strip()]
+
+
+def _held_out(args, cfg):
+    """Held-out batches: a sample list, else synthetic scenes."""
+    if args.val_list:
+        ds = kitti.load_train_list(args.kitti_root or ".", args.val_list,
+                                   cfg.model.height, cfg.model.width, u8=True)
+        return ds.iterator(cfg.batch_size, shuffle=False), (
+            f"{len(ds)} samples from {args.val_list}")
+    it = SyntheticScenes(cfg, seed=cfg.seed + HELD_OUT_SEED, u8=True).iterator(cfg.batch_size)
+    return it, "held-out synthetic scenes (pass --val-list for real data)"
 
 
 def cmd_test(args) -> int:
     """`caffe test` analog: average the eval-mode loss over N held-out
-    batches."""
+    batches of the checkpoint's weights (random weights without one)."""
     device = resolve_device(args.device)
-    cfg = getattr(configs, args.variant)(batch_size=args.batch_size)
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed))
-    models = load_params(build_models(cfg), params, device)
-    it = SyntheticScenes(cfg, seed=cfg.seed + 1_000_003, u8=True).iterator(
-        cfg.batch_size
-    )
-    print("test phase: held-out synthetic scenes")
+    cfg = _restore_or_make_config(args)
+    state = create_state(cfg, device, torch.Generator().manual_seed(args.seed))
+    if args.checkpoint_dir:
+        state = ckpt_io.restore_weights(args.checkpoint_dir, state)
+    it, what = _held_out(args, cfg)
+    print(f"test phase: {what}")
     eval_fn = train_loop.make_eval_step(cfg, device=device)
-    metrics = train_loop.run_validation(eval_fn, models, it, args.iterations)
+    metrics = train_loop.run_validation(eval_fn, state.models, it, args.iterations)
     print(json.dumps(metrics, indent=2))
     return 0
 
 
 def cmd_train(args) -> int:
-    """`caffe train` analog on synthetic scenes (the reference's branch
-    without --kitti-root): random weights from --seed, then ``fit``."""
+    """`caffe train` analog: ``fit`` on KITTI-format data or synthetic
+    scenes, with checkpoints and the staged recipe's init."""
     device = resolve_device(args.device)
-    cfg = getattr(configs, args.variant)(batch_size=args.batch_size, seed=args.seed)
+    cfg = _make_config(args)
     if args.log_every is not None:
         cfg = dataclasses.replace(cfg, log_every=args.log_every)
-    print("no --kitti-root given: training on synthetic scenes")
-    it = SyntheticScenes(cfg, seed=cfg.seed, u8=True).iterator(cfg.batch_size)
+    if args.init_from:
+        cfg = dataclasses.replace(cfg, init_from=args.init_from)
+    if args.init_feat_from:
+        cfg = dataclasses.replace(cfg, init_feat_from=args.init_feat_from)
+    h, w = cfg.model.height, cfg.model.width
+    # Batches stay uint8 until they are on the device (the train step
+    # normalises there); the C++ ring emits uint8 too.
+    if args.train_list:
+        ds = kitti.load_train_list(args.kitti_root or ".", args.train_list, h, w, u8=True)
+        print(f"train list: {len(ds)} samples from {args.train_list}")
+    elif args.kitti_odom_root:
+        seqs = _split(args.sequences)
+        ds = kitti.KittiOdomStereo(args.kitti_odom_root, seqs, h, w, u8=True)
+        print(f"KITTI odometry: {len(ds)} training samples from seqs {seqs}")
+    elif args.kitti_root:
+        drives = _split(args.drives)
+        ds = kitti.KittiRawStereo(args.kitti_root, drives, h, w, u8=True)
+        print(f"KITTI raw: {len(ds)} training samples from {len(drives)} drives")
+    else:
+        ds = None
+        print("no --kitti-root given: training on synthetic scenes")
+    if ds is None:
+        it = SyntheticScenes(cfg, seed=cfg.seed, u8=True).iterator(cfg.batch_size)
+    else:
+        it = ds.iterator(cfg.batch_size, seed=cfg.seed, native_ring=args.native_ring)
     eval_it = None
     if args.eval_every > 0:
-        # Held-out synthetic scenes (disjoint seed from training).
-        eval_it = SyntheticScenes(cfg, seed=cfg.seed + 1_000_003, u8=True).iterator(
-            cfg.batch_size
+        eval_it, what = _held_out(args, cfg)
+        print(f"validation: {what} every {args.eval_every} steps")
+    log = MetricLogger(jsonl_path=args.log_jsonl)
+    try:
+        train_loop.fit(
+            cfg, it, args.steps, checkpoint_dir=args.checkpoint_dir, log_fn=log,
+            eval_iter=eval_it, eval_every=args.eval_every, eval_steps=args.eval_steps,
+            sigint_effect=args.sigint_effect, sighup_effect=args.sighup_effect,
+            device=device,
         )
-        print(f"validation: held-out synthetic scenes every {args.eval_every} steps")
-    train_loop.fit(
-        cfg, it, args.steps, device=device, log_fn=MetricLogger(),
-        eval_iter=eval_it, eval_every=args.eval_every, eval_steps=args.eval_steps,
-        # Caffe's defaults: SIGINT stops after the step, SIGHUP asks for a
-        # snapshot.
-        sigint_effect="stop", sighup_effect="snapshot",
-    )
+    finally:
+        log.close()
+    return 0
+
+
+def cmd_prep(args) -> int:
+    """Write a training sample list from a KITTI raw or odometry tree (the
+    reference's offline data-prep scripts)."""
+    h, w = args.height or 160, args.width or 608
+    if args.odom_root:
+        seqs = _split(args.sequences)
+        ds = kitti.KittiOdomStereo(args.odom_root, seqs, h, w)
+        n = kitti.write_train_list(ds, args.output, args.odom_root)
+        print(f"wrote {n} samples from odometry seqs {seqs} to {args.output}")
+        return 0
+    if not args.kitti_root:
+        print("prep: need --kitti-root (raw) or --odom-root (odometry)")
+        return 2
+    drives = _split(args.drives)
+    if not drives:  # every *_sync drive under the root
+        root = args.kitti_root
+        drives = sorted(d for date in os.listdir(root) if os.path.isdir(os.path.join(root, date))
+                        for d in os.listdir(os.path.join(root, date)) if d.endswith("_sync"))
+        print(f"discovered {len(drives)} drives")
+    if args.eigen_train:
+        # Training must never see the Eigen test scenes.
+        before = len(drives)
+        drives = [d for d in drives if d not in EIGEN_TEST_SCENES]
+        print(f"--eigen-train: excluded {before - len(drives)} Eigen "
+              f"test-scene drives ({len(drives)} remain)")
+    ds = kitti.KittiRawStereo(args.kitti_root, drives, h, w)
+    n = kitti.write_train_list(ds, args.output, args.kitti_root)
+    print(f"wrote {n} samples to {args.output}")
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="depthvo_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser(
-        "train",
-        help="train on synthetic scenes from random weights (reference: caffe train)",
-    )
-    p.add_argument("--variant", default="full_feat", choices=VARIANTS)
+    p = sub.add_parser("train", help="staged training (reference: caffe train)")
+    _add_common(p)
     p.add_argument("--steps", type=int, default=1000)
-    p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random weights and of the scenes")
+                   help="seed of the random weights and of the data order")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--kitti-root", default=None)
+    p.add_argument("--drives", default="")
+    p.add_argument("--kitti-odom-root", default=None,
+                   help="KITTI odometry tree: train on sequences (ref: 00-08)")
+    p.add_argument("--sequences", default="00,01,02,03,04,05,06,07,08",
+                   help="odometry sequences for --kitti-odom-root")
+    p.add_argument("--train-list", default=None,
+                   help="prepared sample list (see the `prep` subcommand)")
+    p.add_argument("--init-from", default=None,
+                   help="previous stage checkpoint (staged finetune)")
+    p.add_argument("--init-feat-from", default=None,
+                   help="pretrain-feat checkpoint: overrides 'feat' params")
+    p.add_argument("--native-ring", default=None,
+                   type=lambda s: s.lower() in ("1", "true", "yes"),
+                   help="force the C++ prefetch ring on/off (default: auto)")
     p.add_argument("--log-every", type=int, default=None,
                    help="print the loss terms every N steps (default: the config's)")
+    p.add_argument("--log-jsonl", default=None,
+                   help="also append per-step metrics as JSONL here")
     p.add_argument("--eval-every", type=int, default=0,
                    help="validate every N steps (caffe test_interval; 0 = never)")
     p.add_argument("--eval-steps", type=int, default=10,
                    help="held-out batches per validation (caffe test_iter)")
+    p.add_argument("--val-list", default=None,
+                   help="held-out sample list for validation (see `prep`); "
+                        "default: held-out synthetic scenes")
+    # Caffe's defaults: SIGINT stops after the step, SIGHUP asks for a
+    # snapshot; both snapshot when there is a --checkpoint-dir.
+    p.add_argument("--sigint-effect", default="stop", choices=["stop", "snapshot", "none"])
+    p.add_argument("--sighup-effect", default="snapshot", choices=["stop", "snapshot", "none"])
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser(
         "test",
         help="average the loss over held-out batches (reference: caffe test)",
     )
-    p.add_argument("--variant", default="full_feat", choices=VARIANTS)
-    p.add_argument("--batch-size", type=int, default=4)
+    _add_common(p)
     p.add_argument("--iterations", type=int, default=10,
                    help="held-out batches to average (caffe test -iterations)")
-    p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights (without --checkpoint-dir)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--kitti-root", default=None)
+    p.add_argument("--val-list", default=None, help="held-out sample list (see `prep`)")
     p.set_defaults(fn=cmd_test)
+
+    p = sub.add_parser("prep", help="build a train-list file from KITTI raw/odometry")
+    _add_common(p)
+    p.add_argument("--kitti-root", default=None)
+    p.add_argument("--drives", default="", help="comma-separated; empty = discover all")
+    p.add_argument("--odom-root", default=None,
+                   help="KITTI odometry tree (overrides --kitti-root)")
+    p.add_argument("--sequences", default="00,01,02,03,04,05,06,07,08")
+    p.add_argument("--output", default="train_list.txt")
+    p.add_argument("--eigen-train", action="store_true",
+                   help="exclude the Eigen TEST scenes from discovered drives")
+    p.set_defaults(fn=cmd_prep)
     return parser
 
 

@@ -1,7 +1,6 @@
-"""Data subsystem of the port (counterpart of ``depthvo_tpu.data``).
-
-Only the synthetic scenes are ported so far; the KITTI readers and the
-host->device pipeline come with later slices.
-"""
+"""Data subsystem of the port (counterpart of ``depthvo_tpu.data``):
+synthetic scenes, the KITTI readers (``kitti``, ``eigen``), the native
+decode ring (``native_loader``) and the host->device pipeline
+(``pipeline``)."""
 
 from depthvo_tpu_torch.data.synthetic import SyntheticScenes  # noqa: F401

@@ -1,2 +1,4 @@
-"""Weight interchange of the port (counterpart of ``depthvo_tpu.io``).
-Only the JAX -> PyTorch bridge is ported so far (``from_jax``)."""
+"""Weight interchange and checkpoints of the port (counterpart of
+``depthvo_tpu.io``): the JAX -> PyTorch bridge (``from_jax``), the port's
+checkpoints (``checkpoint``) and the reader of the JAX package's orbax
+directories (``orbax_reader``)."""

@@ -85,6 +85,26 @@ def params_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
     }
 
 
+def seat_state_dict(net: torch.nn.Module, name: str,
+                    sd: Mapping[str, torch.Tensor]) -> None:
+    """Load a converted state dict into ``net`` (in place): every
+    parameter and BatchNorm statistic filled, no key left over, shapes
+    equal. The BatchNorm step counters, which flax does not have, may be
+    left out (they then stay)."""
+    target = net.state_dict()
+    missing = sorted(k for k in set(target) - set(sd)
+                     if not k.endswith("num_batches_tracked"))
+    extra = sorted(set(sd) - set(target))
+    if missing or extra:
+        raise KeyError(f"{name}: missing {missing[:8]}, unexpected {extra[:8]}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(target[k].shape):
+            raise ValueError(
+                f"{name}.{k}: shape {tuple(v.shape)} != {tuple(target[k].shape)}"
+            )
+    net.load_state_dict(sd, strict=False)
+
+
 def load_jax_params(models: Models, params: Mapping[str, Any],
                     batch_stats: Mapping[str, Any]) -> Models:
     """Load a JAX ``create_state`` tree into ``models`` (in place).
@@ -101,21 +121,6 @@ def load_jax_params(models: Models, params: Mapping[str, Any],
                 f"{name}: the tree {'has' if name in converted else 'lacks'} "
                 f"parameters the models {'lack' if net is None else 'need'}"
             )
-        if net is None:
-            continue
-        sd = converted[name]
-        target = {
-            k: v for k, v in net.state_dict().items()
-            if not k.endswith("num_batches_tracked")
-        }
-        missing = sorted(set(target) - set(sd))
-        extra = sorted(set(sd) - set(target))
-        if missing or extra:
-            raise KeyError(f"{name}: missing {missing[:8]}, unexpected {extra[:8]}")
-        for k, v in sd.items():
-            if tuple(v.shape) != tuple(target[k].shape):
-                raise ValueError(
-                    f"{name}.{k}: shape {tuple(v.shape)} != {tuple(target[k].shape)}"
-                )
-        net.load_state_dict(sd, strict=False)
+        if net is not None:
+            seat_state_dict(net, name, converted[name])
     return models

@@ -11,8 +11,9 @@ Finest stage: the reference's default ``s2d_finest=True`` is an exact
 space-to-depth rewrite of the standard finest stage for the TPU's matrix
 unit, with the same parameters and the same function. The port always
 runs the standard stage, which is therefore what ``s2d_finest=True``
-computes here too. ``fast_final_upsample`` and ``subpixel_head`` are not
-ported yet and raise ``NotImplementedError``.
+computes here too. ``fast_final_upsample``, ``subpixel_head`` and
+``remat`` (the reference's rematerialised stages, the same function with
+less memory) are not ported yet and raise ``NotImplementedError``.
 
 ``compute_dtype="bfloat16"`` runs the convolutions under
 ``torch.autocast``; the parameters stay float32 and the disp heads'
@@ -60,11 +61,12 @@ class DepthNet(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         fast_final_upsample: bool = False,
         subpixel_head: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
-        if fast_final_upsample or subpixel_head:
+        if fast_final_upsample or subpixel_head or remat:
             raise NotImplementedError(
-                "fast_final_upsample and subpixel_head are not ported yet"
+                "fast_final_upsample, subpixel_head and remat are not ported yet"
             )
         self.num_scales = num_scales
         self.max_disp = max_disp

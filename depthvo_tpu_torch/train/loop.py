@@ -30,6 +30,7 @@ solver update per call.
 from __future__ import annotations
 
 import contextlib
+import os
 import signal
 import time
 from typing import Callable, Dict, Iterator
@@ -40,8 +41,10 @@ import torch
 from depthvo_tpu_torch import ops
 from depthvo_tpu_torch.configs import base as config_base
 from depthvo_tpu_torch.configs.base import ExperimentConfig
+from depthvo_tpu_torch.data.pipeline import prefetch_to_device
 from depthvo_tpu_torch.geometry import se3, warp as geo_warp
 from depthvo_tpu_torch.geometry.camera import scale_intrinsics
+from depthvo_tpu_torch.io import checkpoint as ckpt_io
 from depthvo_tpu_torch.losses.photometric import masked_l1_chw, photometric_loss_chw
 from depthvo_tpu_torch.losses.smoothness import smoothness_loss
 from depthvo_tpu_torch.models.layers import resize_bilinear_chw
@@ -215,11 +218,14 @@ def compute_losses(config: ExperimentConfig, models: Models,
     return total, metrics
 
 
-def batch_to_device(batch: Dict[str, np.ndarray],
+def batch_to_device(batch: Dict[str, np.ndarray | torch.Tensor],
                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host batch (numpy) -> tensors on ``device``; uint8 stays uint8."""
+    """Host batch (numpy) -> tensors on ``device``; uint8 stays uint8.
+    Tensors already on ``device`` (a prefetched batch,
+    ``data.pipeline.prefetch_to_device``) pass straight through."""
     return {
-        k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
+        k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))).to(
+            device, non_blocking=True)
         for k, v in batch.items()
     }
 
@@ -347,76 +353,119 @@ def fit(
     config: ExperimentConfig,
     data_iter: Iterator[Dict[str, np.ndarray]],
     num_steps: int,
-    device: str | torch.device | None = None,
+    mesh=None,
+    checkpoint_dir: str | None = None,
     log_fn: Callable[[int, Dict[str, float]], None] | None = None,
     state: TrainState | None = None,
     steps_per_call: int = 1,
+    prefetch: int = 2,
     eval_iter: Iterator[Dict[str, np.ndarray]] | None = None,
     eval_every: int = 0,
     eval_steps: int = 10,
     sigint_effect: str = "none",
     sighup_effect: str = "none",
+    device: str | torch.device | None = None,
 ) -> TrainState:
-    """Host training loop, the rebuild of ``Solver::Solve``.
+    """Host training loop, the rebuild of ``Solver::Solve``; the
+    reference's parameters in its order, then ``device``.
 
-    Runs :func:`make_train_step` on host batches from ``data_iter`` until
-    ``state.step == num_steps`` (a fresh state from ``config.seed`` when
-    ``state`` is None), and calls ``log_fn(step, metrics)`` with the
-    separate loss terms and ``steps_per_sec`` (from the second step on,
-    so the first step's start-up stays out) every ``config.log_every``
-    steps and after the last. ``eval_iter`` + ``eval_every`` run the
-    Caffe solver test phase: every ``eval_every`` steps and after the
-    last, the eval-mode loss terms averaged over ``eval_steps`` batches,
-    logged under ``val/``. ``sigint_effect`` / ``sighup_effect`` are
-    :class:`SolverSignals`' actions.
+    Runs :func:`make_train_step` on batches from ``data_iter`` until
+    ``state.step == num_steps``. A fresh state (``state`` None) comes from
+    ``config.seed``, then takes the previous stage's weights from
+    ``config.init_from`` and the feature net from ``config.init_feat_from``
+    (the staged recipe, ``io.checkpoint.restore_weights`` /
+    ``restore_param_subtree``). With ``checkpoint_dir`` the loop resumes
+    from the newest checkpoint there (a no-op on an empty directory),
+    writes ``config.json`` beside it and snapshots every
+    ``config.checkpoint_every`` steps, after the last step and on the
+    signal actions; a step already saved is not saved again.
 
-    Not ported yet: checkpoints (``checkpoint_dir``, ``init_from``,
-    ``init_feat_from``; ROADMAP A.7) and several steps per call
-    (``steps_per_call > 1``); they raise ``NotImplementedError``.
+    ``prefetch`` > 0 uploads the next batches on a producer thread
+    (``data.pipeline.prefetch_to_device``, pinned buffers and a side
+    stream on a GPU) while the current step runs; 0 uploads in the step.
+    ``log_fn(step, metrics)`` gets the separate loss terms and
+    ``steps_per_sec`` (from the second step on, so the first step's
+    start-up stays out) every ``config.log_every`` steps and after the
+    last. ``eval_iter`` + ``eval_every`` run the Caffe solver test phase:
+    every ``eval_every`` steps and after the last, the eval-mode loss
+    terms averaged over ``eval_steps`` batches, logged under ``val/``.
+    ``sigint_effect`` / ``sighup_effect`` are :class:`SolverSignals`'
+    actions.
+
+    Not ported yet: a ``mesh`` (data parallel over several cards, ROADMAP
+    A.8) and several steps per call (``steps_per_call > 1``, A.3); they
+    raise ``NotImplementedError``.
     """
+    if mesh is not None:
+        raise NotImplementedError("fit over a device mesh is not ported yet")
     if steps_per_call != 1:
         raise NotImplementedError("steps_per_call > 1 is not ported yet")
-    if config.init_from or config.init_feat_from:
-        raise NotImplementedError(
-            "init_from / init_feat_from need checkpoints, not ported yet"
-        )
     dev = resolve_device(device)
     if state is None:
         state = create_state(config, dev)
+        if config.init_from:
+            state = ckpt_io.restore_weights(config.init_from, state)
+        if config.init_feat_from:
+            state = ckpt_io.restore_param_subtree(config.init_feat_from, state, "feat")
     step_fn = make_train_step(config, dev)
     eval_fn = None
     if eval_iter is not None and eval_every > 0:
         eval_fn = make_eval_step(config, dev)
 
+    mgr = None
+    if checkpoint_dir is not None:
+        mgr = ckpt_io.make_manager(checkpoint_dir)
+        state = ckpt_io.maybe_restore(mgr, state)
+        # The architecture travels with the weights: `cli test`,
+        # DepthVO.from_checkpoint and the reference read it back.
+        config_base.save_json(config, os.path.join(checkpoint_dir, "config.json"))
+
+    def snapshot():
+        if mgr.latest_step() != state.step:
+            ckpt_io.save(mgr, state)
+
+    batches = data_iter
+    if prefetch > 0:
+        batches = prefetch_to_device(data_iter, dev, buffer_size=prefetch)
+
     steady_t0 = None
     steady_base = state.step
     signals = SolverSignals(sigint=sigint_effect, sighup=sighup_effect)
-    with signals:
-        while state.step < num_steps:
-            action = signals.pending()
-            if action is not None:
-                # Both actions ask for a snapshot; say that none is taken.
-                print(f"signal {action}: checkpoints are not ported; "
-                      "nothing snapshotted", flush=True)
-                if log_fn is not None:
-                    log_fn(state.step - 1, {f"signal/{action}": 1.0})
-                if action == "stop":
-                    break
-            state, metrics = step_fn(state, next(data_iter))
-            i = state.step
-            if steady_t0 is None:
-                float(metrics["loss/total"])  # waits for the first step
-                steady_t0 = time.perf_counter()
-                steady_base = i
-            last = i - 1
-            if log_fn is not None and (last % config.log_every == 0 or i >= num_steps):
-                logged = {k: float(v) for k, v in metrics.items()}
-                logged["steps_per_sec"] = (i - steady_base) / max(
-                    time.perf_counter() - steady_t0, 1e-9
-                )
-                log_fn(last, logged)
-            if eval_fn is not None and (i % eval_every == 0 or i >= num_steps):
-                val = run_validation(eval_fn, state.models, eval_iter, eval_steps)
-                if log_fn is not None:
-                    log_fn(last, val)
+    try:
+        with signals:
+            while state.step < num_steps:
+                action = signals.pending()
+                if action is not None:
+                    # Both actions ask for a snapshot.
+                    if mgr is None:
+                        print(f"signal {action}: no checkpoint_dir, nothing "
+                              "snapshotted (the training state is not saved)", flush=True)
+                    else:
+                        snapshot()
+                    if log_fn is not None:
+                        log_fn(state.step - 1, {f"signal/{action}": 1.0})
+                    if action == "stop":
+                        break
+                state, metrics = step_fn(state, next(batches))
+                i = state.step
+                if steady_t0 is None:
+                    float(metrics["loss/total"])  # waits for the first step
+                    steady_t0 = time.perf_counter()
+                    steady_base = i
+                last = i - 1
+                if log_fn is not None and (last % config.log_every == 0 or i >= num_steps):
+                    logged = {k: float(v) for k, v in metrics.items()}
+                    logged["steps_per_sec"] = (i - steady_base) / max(
+                        time.perf_counter() - steady_t0, 1e-9
+                    )
+                    log_fn(last, logged)
+                if eval_fn is not None and (i % eval_every == 0 or i >= num_steps):
+                    val = run_validation(eval_fn, state.models, eval_iter, eval_steps)
+                    if log_fn is not None:
+                        log_fn(last, val)
+                if mgr is not None and (i % config.checkpoint_every == 0 or i >= num_steps):
+                    snapshot()
+    finally:
+        if batches is not data_iter:
+            batches.close()  # stops the producer thread
     return state

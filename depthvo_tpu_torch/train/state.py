@@ -75,6 +75,7 @@ def build_models(config: ExperimentConfig) -> Models:
         compute_dtype=dt,
         fast_final_upsample=mc.fast_final_upsample,
         subpixel_head=mc.subpixel_head,
+        remat=mc.remat,
         decoder_features=tuple(mc.decoder_features),
     )
     odom = OdomNet(compute_dtype=dt).eval() if "odom" in nets else None
@@ -265,3 +266,79 @@ def create_state(config: ExperimentConfig, device: torch.device,
     models = load_params(build_models(config), init_params(config, generator), device)
     tx = make_optimizer(config) if tx is None else tx
     return TrainState(0, models.train(), tx.init(param_tree(models)))
+
+
+# --------------------------------------------------------------------------
+# The train state as plain data (checkpoints).
+# --------------------------------------------------------------------------
+
+
+def _map_tree(tree: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
+    """Apply ``fn`` to every tensor of a solver state (nested tuples and
+    lists of tensors and Python numbers, as ``train/optim.py`` builds)."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if type(tree) in (tuple, list):
+        return type(tree)(_map_tree(t, fn) for t in tree)
+    if type(tree) in (int, float):
+        return tree
+    raise TypeError(f"unexpected solver-state leaf {type(tree).__name__}")
+
+
+def _same_structure(a: Any, b: Any, path: str = "opt_state") -> None:
+    """Raise unless the solver states ``a`` and ``b`` have the same
+    containers (a list and a tuple count as one: ``torch._foreach_*``
+    return either), the same Python number types and the same tensor
+    shapes and dtypes."""
+    if torch.is_tensor(a) and torch.is_tensor(b):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"{path}: {tuple(b.shape)} {b.dtype} where the "
+                             f"state has {tuple(a.shape)} {a.dtype}")
+        return
+    seqs = (tuple, list)
+    if type(a) is not type(b) and not (type(a) in seqs and type(b) in seqs):
+        raise ValueError(f"{path}: {type(b).__name__} where the state has "
+                         f"{type(a).__name__}")
+    if type(a) in seqs:
+        if len(a) != len(b):
+            raise ValueError(f"{path}: {len(b)} entries where the state has {len(a)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_structure(x, y, f"{path}[{i}]")
+
+
+def state_dict(state: TrainState) -> Dict[str, Any]:
+    """The whole train state as plain data that ``torch.load(...,
+    weights_only=True)`` reads back: ``step`` (int), ``nets`` (each stage
+    network's ``state_dict()``, BatchNorm statistics included),
+    ``param_keys`` (the solver's parameter order, :func:`param_tree`) and
+    ``opt_state`` (the solver chain's nested tuples and lists, with its
+    counts as Python ints). Every tensor is a CPU copy."""
+
+    def cpu(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to("cpu", copy=True)
+
+    return {
+        "step": int(state.step),
+        "nets": {name: {k: cpu(v) for k, v in net.state_dict().items()}
+                 for name, net in zip(Models._fields, state.models) if net is not None},
+        "param_keys": list(param_tree(state.models)),
+        "opt_state": _map_tree(state.opt_state, cpu),
+    }
+
+
+def load_state_dict(state: TrainState, d: Dict[str, Any]) -> TrainState:
+    """Load :func:`state_dict`'s output into ``state`` in place (onto its
+    networks' device). The stage's networks, the solver's parameter order
+    and the solver state's structure must be the state's own."""
+    nets = {name: net for name, net in zip(Models._fields, state.models) if net is not None}
+    if sorted(d["nets"]) != sorted(nets):
+        raise KeyError(f"checkpoint networks {sorted(d['nets'])}, the state's {sorted(nets)}")
+    if list(d["param_keys"]) != list(param_tree(state.models)):
+        raise ValueError("the checkpoint's solver parameter order differs from the state's")
+    _same_structure(state.opt_state, d["opt_state"])
+    device = next(iter(param_tree(state.models).values())).device
+    for name, net in nets.items():
+        net.load_state_dict(d["nets"][name], strict=True)
+    state.opt_state = _map_tree(d["opt_state"], lambda t: t.to(device, copy=True))
+    state.step = int(d["step"])
+    return state
