@@ -73,7 +73,32 @@ with a nonzero exit code:
              gen_fwd_aux or stereo_bwd_src per step), finite losses, and
              ms/step, frames/s and peak memory over 12 steady steps on
              pre-made batches.
-6. kitti_ckpt - the training path users run, in a temporary directory: a
+6. scan    - several train steps per call, the step captured as a CUDA
+             graph and replayed (``make_scan_train_step``): (1) float32,
+             TF32 off, cuDNN deterministic, batch 2, the train phase's
+             weights: 4 steps in one call (1 eager step, its capture, 3
+             replays) against 4 eager steps from the same state, with
+             iter_size 1 and 2 (both of its graphs), every parameter,
+             BatchNorm statistic, solver tensor and the last metrics
+             compared (measured bit for bit; held to METRIC_RTOL,
+             STATS_RTOL and GRAD_RTOL on the parameters' change and the
+             solver's tensors), and the launches of the call (replays
+             counted); (2) the default (bfloat16) config at batch 4 on
+             pre-made batches already on the card: eager steps and graph
+             K=8, five calls of 8 steps each, ms/step untraced (median of
+             the calls after the first), the peak allocated bytes of the
+             first call and of the rest, the bytes of the graph's private
+             pool, and one traced call each: every warp kernel K x the
+             train phase's launches per step in the profiler's trace and
+             in the counters, kernels per step, device busy ms per step
+             and share of the traced wall; (3) ``cli train --kitti-root
+             ... --native-ring 1 --steps-per-call 8`` on phase
+             kitti_ckpt's tree (written anew): 17 steps (1 eager step and
+             7 replays, 8 replays, an exact tail of 1) with the train
+             phase's launches per step and logs at steps 7 and 16; the
+             ms/step after the first call, also over 65 steps, beside the
+             host ring's ms per batch.
+7. kitti_ckpt - the training path users run, in a temporary directory: a
              KITTI raw drive (9 frames per camera at 1242x375, PNGs written
              with zlib, calib with P_rect_02/03 and S_rect_02); ``cli train
              --kitti-root ... --native-ring 1 --checkpoint-dir C`` for 2
@@ -93,7 +118,7 @@ with a nonzero exit code:
              the same over 13 steady steps of a 14-step run, the host
              ring's ms per batch, the checkpoint's bytes and its
              save and restore ms, beside the card's name and power limit.
-7. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
+8. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
              uint8 batch and pose of its frame pairs; shapes, finiteness
              and latency.
 
@@ -823,6 +848,271 @@ def phase_train(variant: str, dev):
     return launches, ms
 
 
+WARP_KERNEL_NAMES = {  # the kernels' names in a profiler trace
+    "stereo_fwd": "stereo_fwd_pyramid_kernel",
+    "stereo_bwd_u": "stereo_bwd_u_pyramid_kernel",
+    "stereo_bwd_src": "stereo_bwd_src_kernel",
+    "gen_fwd": "gen_fwd_pyramid_kernel<false>",
+    "gen_fwd_aux": "gen_fwd_pyramid_kernel<true>",
+    "gen_bwd_uv": "gen_bwd_uv_kernel",
+}
+SCAN_K = 8
+
+
+def _state_leaves(state) -> dict:
+    """Every tensor of a train state by name: parameters, BatchNorm
+    statistics and the solver's tensors."""
+    from depthvo_tpu_torch.train.state import Models
+
+    out = {f"{n}.{k}": v for n, net in zip(Models._fields, state.models) if net is not None
+           for k, v in net.state_dict().items() if v.is_floating_point()}
+
+    def walk(tree, path):
+        if hasattr(tree, "shape"):
+            out[path] = tree
+        elif isinstance(tree, (tuple, list)):
+            for i, t in enumerate(tree):
+                walk(t, f"{path}[{i}]")
+
+    walk(state.opt_state, "opt_state")
+    return out
+
+
+def _traced_call(run, steps: int) -> dict:
+    """One ``run()`` of ``steps`` train steps under torch.profiler: the
+    warp kernels by name, all kernels, and the device's busy share of the
+    traced wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from depthvo_tpu_torch.utils.profiling import _busy_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    return {
+        "warp_kernels": {k: sum(name in e.name for e in kernels)
+                         for k, name in WARP_KERNEL_NAMES.items()},
+        "kernels_per_step": len(kernels) / steps,
+        "device_busy_ms_per_step": busy / steps / 1e3,
+        "traced_wall_ms_per_step": wall_us / steps / 1e3,
+        "device_busy_share": busy / wall_us,
+    }
+
+
+def _private_pool_bytes() -> int:
+    """Bytes the caching allocator holds in private pools (a CUDA graph's):
+    reserved for the graph's whole life, whether its tensors are live."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def _graph_vs_eager(cfg32, params, host, dev) -> dict:
+    """len(host) steps in one ``make_scan_train_step`` call (1 eager step,
+    its capture, replays) against as many eager steps from the same
+    weights: every tensor of the two states, the last metrics and the
+    call's launches (its state is freed on return)."""
+    import torch
+
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+    from depthvo_tpu_torch.train import loop
+    from depthvo_tpu_torch.train.state import TrainState, build_models, load_params, \
+        make_optimizer, param_tree
+
+    def fresh():
+        models = load_params(build_models(cfg32), params, dev).train()
+        return TrainState(0, models, make_optimizer(cfg32).init(param_tree(models)))
+
+    wk.reset_launches()
+    graphed, g_metrics = loop.make_scan_train_step(cfg32, device=dev)(
+        fresh(), loop.stack_batches(host))
+    g_launches = {k: wk.launch_count(k) for k in KERNELS}
+    eager, step = fresh(), loop.make_train_step(cfg32, dev)
+    for b in host:
+        eager, e_metrics = step(eager, b)
+    torch.cuda.synchronize()
+    want = {k: n * len(host) for k, n in _train_launches(cfg32).items()}
+    if {k: v for k, v in g_launches.items() if v} != want or graphed.step != len(host):
+        raise AssertionError(f"graph path launches {g_launches}, expected {want}")
+    g, e = _state_leaves(graphed), _state_leaves(eager)
+    metric_err = max(abs(float(g_metrics[k]) - float(e_metrics[k]))
+                     / max(abs(float(e_metrics[k])), 1e-30) for k in e_metrics)
+    trainable = [k for k in param_tree(eager.models) if not k.startswith("feat.")]
+    groups = {"params": trainable,
+              "bn_stats": [k for k in e if k.endswith(("running_mean", "running_var"))],
+              "solver": [k for k in e if k.startswith("opt_state")]}
+    errs = {f"{name}_max_abs": max(float((g[k] - e[k]).abs().max()) for k in keys)
+            for name, keys in groups.items()}
+    n_diff = sum(not torch.equal(g[k], e[k]) for k in e)
+    stat_err = max(float((g[k] - e[k]).abs().max() / e[k].abs().max().clamp_min(1e-30))
+                   for k in groups["bn_stats"])
+    flat = lambda s, keys: torch.cat([s[k].flatten().cpu() for k in keys])  # noqa: E731
+    start = {k: params[k.split(".", 1)[0]][k.split(".", 1)[1]] for k in trainable}
+    # the parameters' change over the steps, graph against eager
+    par_err = float((flat(g, trainable) - flat(e, trainable)).norm()
+                    / (flat(e, trainable) - flat(start, trainable)).norm())
+    sol_err = _rel(flat(g, groups["solver"]), flat(e, groups["solver"]))
+    if not (metric_err <= METRIC_RTOL and stat_err <= STATS_RTOL
+            and par_err <= GRAD_RTOL and sol_err <= GRAD_RTOL):
+        raise AssertionError(f"graph vs eager, iter_size {cfg32.optim.iter_size}: metrics "
+                             f"{metric_err}, BN {stat_err}, params {par_err}, solver {sol_err}")
+    return {"steps": len(host), "tensors": len(e), "tensors_not_bitwise_equal": n_diff,
+            "metrics_max_rel": metric_err, "bn_stats_max_rel": stat_err,
+            "params_rel_l2": par_err, "solver_rel_l2": sol_err, **errs,
+            "graph_launches": g_launches}
+
+
+def phase_scan(variant: str, dev, smi: str):
+    """Several train steps per call: the step captured as a CUDA graph and
+    replayed (``make_scan_train_step``, ``fit(steps_per_call=K)``,
+    ``cli train --steps-per-call``) against the eager step."""
+    import os
+    import tempfile
+
+    import torch
+
+    from depthvo_tpu_torch import cli, configs
+    from depthvo_tpu_torch.data import kitti
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+    from depthvo_tpu_torch.train import loop
+    from depthvo_tpu_torch.train.state import create_state, init_params
+
+    cfg = getattr(configs, variant)(batch_size=BATCH)
+    out = {"phase": "scan", "config": variant, "nvidia_smi": smi}
+
+    # (1) f32, TF32 off, cuDNN deterministic, batch 2, the train phase's
+    # weights: K=4 steps through the graph against 4 eager steps from the
+    # same state, with iter_size 1 (one graph) and 2 (both of its graphs).
+    base32 = _f32_config(getattr(configs, variant)(batch_size=2))
+    params = init_params(base32, torch.Generator().manual_seed(0))
+    params["odom"]["Dense_2.bias"] = torch.tensor([2.0, -1.0, -30.0, 0.2, -0.3, 0.1])
+    scenes = SyntheticScenes(base32, seed=base32.seed, u8=True, num_scenes=2)
+    host = [scenes.fixed_batch(2)] + [scenes.batch(2) for _ in range(3)]
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out["graph_vs_eager"] = {}
+    for iter_size in (1, 2):
+        cfg32 = dataclasses.replace(base32, optim=dataclasses.replace(
+            base32.optim, iter_size=iter_size))
+        out["graph_vs_eager"][f"iter_size_{iter_size}"] = _graph_vs_eager(cfg32, params, host, dev)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
+
+    # (2) bf16 default, batch 4, pre-made batches: eager K=1 against the
+    # graph K=8, calls of 8 steps each, ms/step untraced (median of the
+    # calls after the first), one traced call each (kernel counts, busy
+    # share), peak memory.
+    scenes = SyntheticScenes(cfg, seed=cfg.seed, u8=True)
+    batches = [scenes.batch(BATCH) for _ in range(SCAN_K)]
+    stacked = loop.batch_to_device(loop.stack_batches(batches), dev)
+    on_dev = [loop.batch_to_device(b, dev) for b in batches]
+    timing = {}
+    for mode in ("eager", "graph"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_state(cfg, dev)
+        if mode == "eager":
+            step = loop.make_train_step(cfg, dev)
+
+            def call():
+                for b in on_dev:
+                    step(state, b)
+        else:
+            scan = loop.make_scan_train_step(cfg, device=dev)
+
+            def call():
+                scan(state, stacked)
+        ms = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / SCAN_K)
+            if i == 0:
+                first_peak = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+        memory = {"first_call_peak_allocated_bytes": first_peak,
+                  "steady_peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                  "graph_pool_bytes": _private_pool_bytes()}
+        wk.reset_launches()
+        traced = _traced_call(call, SCAN_K)
+        counts = {k: wk.launch_count(k) for k in KERNELS}
+        want = {k: _train_launches(cfg).get(k, 0) * SCAN_K for k in KERNELS}
+        if traced["warp_kernels"] != want or counts != want:
+            raise AssertionError(f"{mode}: one call of {SCAN_K} steps ran "
+                                 f"{traced['warp_kernels']} (counters {counts}), expected {want}")
+        timing[mode] = {"ms_per_step_calls": ms, "ms_per_step": statistics.median(ms[1:]),
+                        "memory": memory, "traced_call": traced}
+        del state
+    out["bf16_premade"] = timing
+
+    # (3) From disk: `cli train --steps-per-call 8` on a KITTI raw tree
+    # (phase kitti_ckpt's, written anew), 17 steps: 1 eager step and 7
+    # replays, 8 replays, then the exact tail of 1; every step launches
+    # the train phase's kernels. Beside it, the host ring's ms per batch.
+    tmp = tempfile.TemporaryDirectory(prefix="scan-")
+    root = os.path.join(tmp.name, "kitti")
+    drive = write_kitti_raw(root, cfg)
+    steps = 2 * SCAN_K + 1
+
+    def train_argv(n):
+        return ["train", "--variant", variant, "--kitti-root", root, "--drives", drive,
+                "--steps", str(n), "--batch-size", str(BATCH), "--device", "cuda",
+                "--native-ring", "1", "--steps-per-call", str(SCAN_K), "--log-every", "100"]
+
+    argv = train_argv(steps)
+    printed = io.StringIO()
+    wk.reset_launches()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(argv)
+    launches = _check_counts(_train_launches(cfg), steps)
+    lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")]
+    logged = [dict(kv.split("=") for kv in ln.split(": ", 1)[1].split()) for ln in lines]
+    seen = [int(ln.split(":")[0].split()[1]) for ln in lines]
+    if rc != 0 or seen != [SCAN_K - 1, steps - 1] or not all(
+            math.isfinite(float(v)) for m in logged for v in m.values()):
+        raise AssertionError(f"cli train --steps-per-call failed: rc {rc}, {lines}")
+    # Longer, so that the batches queued during the first call (the
+    # prefetch's stacks and the ring's queue) no longer carry the rate.
+    long_steps = 8 * SCAN_K + 1
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(train_argv(long_steps))
+    last = [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")][-1]
+    if rc != 0 or not last.startswith(f"step {long_steps - 1}:"):
+        raise AssertionError(f"cli train --steps {long_steps} failed: rc {rc}, {last}")
+    long_ms = 1e3 / float(dict(kv.split("=") for kv in last.split(": ", 1)[1].split())[
+        "steps_per_sec"])
+    ring = kitti.KittiRawStereo(root, [drive], cfg.model.height, cfg.model.width,
+                                u8=True).iterator(BATCH, native_ring=True)
+    next(ring)
+    n = 16
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(ring)
+    ring_ms = (time.perf_counter() - t0) * 1e3 / n
+    ring.close()
+    tmp.cleanup()
+    out["from_disk"] = {
+        "argv": argv, "launches": launches, "logged_steps": seen,
+        "ms_per_step_after_first_call": 1e3 / float(logged[-1]["steps_per_sec"]),
+        f"ms_per_step_after_first_call_of_{long_steps}": long_ms,
+        "host_ring_ms_per_batch": ring_ms,
+        "losses": [{k: float(m[k]) for k in m if k.startswith("loss/")} for m in logged]}
+    emit(out)
+    return out
+
+
 KITTI_HW = (375, 1242)  # the rectified size of KITTI raw's 2011_09_26 drives
 KITTI_FRAMES = 9
 
@@ -1120,6 +1410,7 @@ def main() -> int:
     rows = phase_kernels(_f32_config(cfg), dev)
     phase_slice("full_feat", dev)
     train_launches, premade_ms = phase_train("full_feat", dev)
+    phase_scan("full_feat", dev, smi)
     phase_kitti_ckpt("full_feat", dev, smi, premade_ms)
     phase_serve(dev)
 

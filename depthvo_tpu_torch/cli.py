@@ -155,6 +155,7 @@ def cmd_train(args) -> int:
     try:
         train_loop.fit(
             cfg, it, args.steps, checkpoint_dir=args.checkpoint_dir, log_fn=log,
+            steps_per_call=args.steps_per_call,
             eval_iter=eval_it, eval_every=args.eval_every, eval_steps=args.eval_steps,
             sigint_effect=args.sigint_effect, sighup_effect=args.sighup_effect,
             device=device,
@@ -219,6 +220,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--native-ring", default=None,
                    type=lambda s: s.lower() in ("1", "true", "yes"),
                    help="force the C++ prefetch ring on/off (default: auto)")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="train steps per call: K > 1 captures the step as a CUDA "
+                        "graph and replays it K times per call (the reference's "
+                        "lax.scan); on the CPU, K eager steps")
     p.add_argument("--log-every", type=int, default=None,
                    help="print the loss terms every N steps (default: the config's)")
     p.add_argument("--log-jsonl", default=None,

@@ -8,6 +8,10 @@ host buffers and uploads it on a side CUDA stream, so the copy overlaps
 the step that runs on the consumer's stream. Images stay uint8 until
 they are on the device (the loss graph normalises them there).
 
+With several train steps per call, :func:`stacked_batches` stacks K
+host batches into one [K, ...] batch, which goes through the same pinned
+slots in one upload per call.
+
 Ordering is kept with events, never with a device-wide synchronize:
 
 * the upload records an event on the side stream; the consumer's stream
@@ -38,6 +42,27 @@ def batch_iterator(sample_fn: Callable[[], Dict[str, np.ndarray]]
     """Wrap a zero-argument batch factory into an infinite iterator."""
     while True:
         yield sample_fn()
+
+
+def stack_batches(batches: list) -> Dict[str, np.ndarray]:
+    """Stack K host batches (a list of dicts) into one dict of [K, ...]
+    arrays (the port's copy of the reference's ``train/loop.py``
+    function)."""
+    return {k: np.stack([b[k] for b in batches], axis=0) for k in batches[0]}
+
+
+def stacked_batches(it: Iterator[Batch], steps_per_call: int, start: int,
+                    total: int) -> Iterator[Dict[str, np.ndarray]]:
+    """The stacked batches of a run of steps ``start`` to ``total`` with
+    ``steps_per_call`` steps per call: K = min(steps_per_call, steps
+    left) batches of ``it`` per stack, so the last stack holds exactly the
+    steps left and no batch is read twice or beyond ``total`` (the
+    reference's ``fit._stacked``)."""
+    step = start
+    while step < total:
+        k = min(steps_per_call, total - step)
+        yield stack_batches([next(it) for _ in range(k)])
+        step += k
 
 
 class _PinnedUploader:

@@ -31,17 +31,16 @@ def scale_intrinsics(K: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     ``(s-1)/2`` offset on top of the plain scaling (see the reference's
     docstring for the derivation).
     """
-    K = as_real(K)
-    scale = torch.tensor(
-        [[sx, 1.0, sx], [1.0, sy, sy], [1.0, 1.0, 1.0]], dtype=K.dtype, device=K.device
-    )
-    shift = torch.tensor(
-        [[0.0, 0.0, (sx - 1.0) / 2.0],
-         [0.0, 0.0, (sy - 1.0) / 2.0],
-         [0.0, 0.0, 0.0]],
-        dtype=K.dtype, device=K.device,
-    )
-    return K * scale + shift
+    # K * [[sx, 1, sx], [1, sy, sy], [1, 1, 1]] + the offsets, written
+    # on the entries that change, so that no constant is copied from the
+    # host: such a copy waits for the device, and a CUDA graph of the
+    # train step cannot hold it.
+    K = as_real(K).clone()
+    K[..., 0, 0::2] *= sx
+    K[..., 0, 2] += (sx - 1.0) / 2.0
+    K[..., 1, 1:] *= sy
+    K[..., 1, 2] += (sy - 1.0) / 2.0
+    return K
 
 
 def pixel_grid(height: int, width: int, device=None,
@@ -60,7 +59,9 @@ def backproject(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
         depth = depth[..., 0]
     H, W = depth.shape[-2:]
     grid = pixel_grid(H, W, device=depth.device, dtype=depth.dtype)
-    K_inv = torch.linalg.inv(as_real(K))
+    # inv_ex: inv's values without its check for singular K, which
+    # reads a flag back from the device (a CUDA graph cannot hold that).
+    K_inv = torch.linalg.inv_ex(as_real(K)).inverse
     rays = (K_inv[..., None, None, :, :] * grid[..., None, :]).sum(-1)
     return rays * depth[..., None]
 

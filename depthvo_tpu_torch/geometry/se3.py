@@ -106,8 +106,10 @@ def left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
 def _rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 3, 3) + (..., 3) -> (..., 4, 4) homogeneous matrix."""
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    bottom = bottom.expand(R.shape[:-2] + (1, 4))
+    # [0, 0, 0, 1] made on the device (a copy from the host would wait
+    # for it, and a CUDA graph cannot hold one).
+    bottom = R.new_zeros(R.shape[:-2] + (1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

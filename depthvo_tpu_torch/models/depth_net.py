@@ -38,11 +38,14 @@ from depthvo_tpu_torch.models.layers import (
 
 def autocast_for(x: torch.Tensor, compute_dtype: torch.dtype):
     """The networks' mixed-precision region: bf16 convs under autocast,
-    a no-op for float32."""
+    a no-op for float32. Without autocast's cache of casted weights: each
+    weight is cast once per forward anyway, and a cast kept from before a
+    CUDA-graph capture would be replayed stale."""
     return torch.autocast(
         device_type=x.device.type,
         dtype=torch.bfloat16,
         enabled=compute_dtype == torch.bfloat16,
+        cache_enabled=False,
     )
 
 

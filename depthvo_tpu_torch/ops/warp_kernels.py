@@ -25,7 +25,10 @@ plain PyTorch version of the same function beside it:
 Dispatch is on the tensor's device: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, or the call raises. Each
 wrapper counts its launches in :data:`LAUNCHES` (``gen_fwd`` with the
-gradient factors counts as ``gen_fwd_aux``).
+gradient factors counts as ``gen_fwd_aux``); under CUDA-graph capture it
+counts in :data:`CAPTURED` instead, and each replay of the graph adds
+those to :data:`LAUNCHES`. The kernels launch on the current stream,
+so a graph of the train step captures them.
 
 Two ``torch.autograd.Function``s sit where the reference puts its custom
 VJPs, so autograd on either device runs the same backward contract:
@@ -83,6 +86,10 @@ TABLE_FIELDS = ("src", "u", "v", "g", "out", "s_aux", "d_aux")
 # Launches per (kernel name, src shape); only the CUDA wrappers count,
 # where they launch.
 LAUNCHES: collections.Counter = collections.Counter()
+# What the wrappers were called for while their stream was capturing a
+# CUDA graph: the capture runs no kernel. Whoever replays the graph adds
+# the capture's counts to LAUNCHES at each replay.
+CAPTURED: collections.Counter = collections.Counter()
 
 
 def launch_count(name: str) -> int:
@@ -92,6 +99,11 @@ def launch_count(name: str) -> int:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def _count(key: tuple) -> None:
+    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[key] += 1
+
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,7 +242,7 @@ def _launch_table(name: str, fn, plans, *flags, **fields) -> None:
     ints = [x for pl in plans for x in (pl.B, pl.C, pl.H, pl.W, pl.block_end)]
     _launch(name, fn, len(plans), (ctypes.c_void_p * len(ptrs))(*ptrs),
             (ctypes.c_int * len(ints))(*ints), *flags, _stream(srcs[0].device))
-    LAUNCHES[(name, tuple(tuple(s.shape) for s in srcs))] += 1
+    _count((name, tuple(tuple(s.shape) for s in srcs)))
 
 
 # --------------------------------------------------------------------------
@@ -375,7 +387,7 @@ def stereo_bwd_src_cuda(g: torch.Tensor, u: torch.Tensor,
     _launch("stereo_bwd_src", _kernels().depthvo_stereo_bwd_src,
             g.data_ptr(), u.data_ptr(), d_src.data_ptr(), B, C, H, W,
             n_shifts(dmax, W), _stream(g.device))
-    LAUNCHES[("stereo_bwd_src", (B, C, H, W))] += 1
+    _count(("stereo_bwd_src", (B, C, H, W)))
     return d_src
 
 
@@ -579,7 +591,7 @@ def gen_bwd_uv_cuda(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     _launch("gen_bwd_uv", _kernels().depthvo_gen_bwd_uv,
             src.data_ptr(), g.data_ptr(), u.data_ptr(), v.data_ptr(),
             d_u.data_ptr(), d_v.data_ptr(), B, C, H, W, _stream(src.device))
-    LAUNCHES[("gen_bwd_uv", (B, C, H, W))] += 1
+    _count(("gen_bwd_uv", (B, C, H, W)))
     return d_u, d_v
 
 

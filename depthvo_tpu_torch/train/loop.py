@@ -23,17 +23,20 @@ layout. In train mode the depth net's BatchNorm uses and updates batch
 statistics, and autograd differentiates the warps through the kernels'
 ``autograd.Function``s (``ops/warp_kernels.py``); the backward kernels
 run per scale, and the sources are data, so the stereo backward launches
-K2 and not K3. The train step is eager: one forward, one backward and one
-solver update per call.
+K2 and not K3. ``make_train_step`` is eager: one forward, one backward and
+one solver update per call. ``make_scan_train_step`` runs K steps per
+call; on a GPU it captures the whole step once as a CUDA graph and
+replays it per step.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import signal
 import time
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -41,13 +44,14 @@ import torch
 from depthvo_tpu_torch import ops
 from depthvo_tpu_torch.configs import base as config_base
 from depthvo_tpu_torch.configs.base import ExperimentConfig
-from depthvo_tpu_torch.data.pipeline import prefetch_to_device
+from depthvo_tpu_torch.data.pipeline import prefetch_to_device, stack_batches, stacked_batches
 from depthvo_tpu_torch.geometry import se3, warp as geo_warp
 from depthvo_tpu_torch.geometry.camera import scale_intrinsics
 from depthvo_tpu_torch.io import checkpoint as ckpt_io
 from depthvo_tpu_torch.losses.photometric import masked_l1_chw, photometric_loss_chw
 from depthvo_tpu_torch.losses.smoothness import smoothness_loss
 from depthvo_tpu_torch.models.layers import resize_bilinear_chw
+from depthvo_tpu_torch.ops import warp_kernels
 from depthvo_tpu_torch.train import optim
 from depthvo_tpu_torch.train.state import (
     DTYPES,
@@ -134,7 +138,12 @@ def compute_losses(config: ExperimentConfig, models: Models,
                 batch["image_s"].permute(0, 3, 1, 2)
             ).to(loss_dtype)
         depth_full = depths[-1]
-        payload = torch.cat([image_s_chw, feat_s_chw], dim=1)
+        if config.train_feat:
+            # NHWC in memory, as the plain warp below reads it.
+            payload = torch.cat([image_s_chw, feat_s_chw], dim=1)
+        else:
+            payload = fused_payload(image_s_chw, feat_s_chw)
+        del feat_s_chw
 
     # One grouped stereo warp over every scale, one grouped general warp
     # over the temporal scales and (unless the feature net trains) the
@@ -218,13 +227,30 @@ def compute_losses(config: ExperimentConfig, models: Models,
     return total, metrics
 
 
+def fused_payload(image_chw: torch.Tensor, feat_chw: torch.Tensor) -> torch.Tensor:
+    """``torch.cat([image_chw, feat_chw], dim=1)``, written once into a
+    contiguous (B, 3+C, H, W) tensor, the layout the general warp's kernel
+    reads. The inputs are NHWC in memory, so ``torch.cat`` would give NHWC
+    strides and the warp a second, contiguous copy, both live at the train
+    step's peak (and, for a CUDA graph, in its pool for the whole run)."""
+    n = image_chw.shape[1]
+    out = image_chw.new_empty((image_chw.shape[0], n + feat_chw.shape[1])
+                              + tuple(image_chw.shape[2:]))
+    out[:, :n] = image_chw
+    out[:, n:] = feat_chw
+    return out
+
+
 def batch_to_device(batch: Dict[str, np.ndarray | torch.Tensor],
                     device: torch.device) -> Dict[str, torch.Tensor]:
     """Host batch (numpy) -> tensors on ``device``; uint8 stays uint8.
-    Tensors already on ``device`` (a prefetched batch,
-    ``data.pipeline.prefetch_to_device``) pass straight through."""
+    Arrays arrive C-contiguous whatever their strides on the host, as
+    the prefetch's pinned slots and a CUDA graph's static batch hold them
+    (a layout changes the convolutions' rounding). Tensors already on
+    ``device`` (a prefetched batch, ``data.pipeline.prefetch_to_device``)
+    pass straight through."""
     return {
-        k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))).to(
+        k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)).contiguous()).to(
             device, non_blocking=True)
         for k, v in batch.items()
     }
@@ -262,6 +288,36 @@ def run_validation(eval_fn, models: Models, eval_iter: Iterator[Dict[str, np.nda
     return {f"val/{k}": v / max(eval_steps, 1) for k, v in totals.items()}
 
 
+def _train_body(config: ExperimentConfig, tx: optim.Transform, state: TrainState,
+                batch: Dict[str, torch.Tensor], hyper) -> Dict[str, torch.Tensor]:
+    """One train step's device work, shared by the eager step and the
+    captured graph: the forward in train mode on ``batch`` (tensors on the
+    step's device), the backward into the parameters' ``.grad`` (which the
+    caller has cleared), then the solver's ``apply`` with the plan's numbers
+    ``hyper`` (0-dim tensors), parameters, BatchNorm statistics and solver
+    state all updated in place. Returns the metrics (detached)."""
+    params = param_tree(state.models)
+    total, metrics = compute_losses(config, state.models, batch, train=True)
+    total.backward()
+    with torch.no_grad():
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                 for k, p in params.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad/global_norm"] = optim.global_norm(grads)
+        optim.apply_updates(params, tx.apply(grads, state.opt_state, params, hyper))
+    return metrics
+
+
+def _hyper_table(plans, device: torch.device) -> torch.Tensor:
+    """The numbers of one plan per step as a (steps, n) float32 table on
+    ``device``, rows padded with zeros, in one copy."""
+    rows = [optim.hyper_leaves(h) for h in plans]
+    table = np.zeros((len(rows), max(map(len, rows))), np.float32)
+    for k, row in enumerate(rows):
+        table[k, :len(row)] = row
+    return torch.from_numpy(table).to(device, non_blocking=True)
+
+
 def make_train_step(config: ExperimentConfig, device: str | torch.device | None = None
                     ) -> Callable[[TrainState, Dict[str, np.ndarray]], tuple]:
     """The train step: ``step_fn(state, host_batch) -> (state, metrics)``.
@@ -278,24 +334,199 @@ def make_train_step(config: ExperimentConfig, device: str | torch.device | None 
     tx = make_optimizer(config)
 
     def step_fn(state: TrainState, batch: Dict[str, np.ndarray]):
-        params = param_tree(state.models)
-        for p in params.values():
+        for p in param_tree(state.models).values():
             p.grad = None
-        total, metrics = compute_losses(
-            config, state.models, batch_to_device(batch, dev), train=True
-        )
-        total.backward()
-        with torch.no_grad():
-            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
-                     for k, p in params.items()}
-            metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics["grad/global_norm"] = optim.global_norm(grads)
-            updates, state.opt_state = tx.update(grads, state.opt_state, params)
-            optim.apply_updates(params, updates)
+        hyper, opt_state = tx.plan(state.opt_state)
+        metrics = _train_body(config, tx, state, batch_to_device(batch, dev),
+                              optim.hyper_fill(hyper, _hyper_table([hyper], dev)[0]))
+        state.opt_state = opt_state
         state.step += 1
         return state, metrics
 
     return step_fn
+
+
+class _Captured(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    scalars: torch.Tensor  # the plan's numbers the graph reads
+    metrics: Dict[str, torch.Tensor]  # what each replay writes
+    launches: collections.Counter  # the warp kernels' launches per replay
+
+
+def _state_tensors(state: TrainState) -> list:
+    """Every tensor a graph of the step updates in place."""
+    def leaves(tree):
+        if torch.is_tensor(tree):
+            return [tree]
+        if isinstance(tree, (tuple, list)):
+            return [x for t in tree for x in leaves(t)]
+        return []
+
+    buffers = [b for net in state.models if net is not None for b in net.buffers()]
+    return list(param_tree(state.models).values()) + buffers + leaves(state.opt_state)
+
+
+class _GraphedSteps:
+    """The train step as CUDA graphs on one GPU, replayed once per step.
+
+    A graph is captured per branch of the solver's plan (one; two with
+    ``iter_size > 1``: accumulate only, accumulate and update), all in one
+    memory pool, bound to the storage of the state's tensors, to one
+    layout of the batch (keys, per-step shapes, dtypes) and to the TF32
+    and cuDNN settings. Before capturing a branch, its step runs eagerly
+    once on a side stream: cuDNN, cuBLAS and the allocator set themselves
+    up there, outside the capture, and that step is a real, counted step
+    of the run. The capture executes nothing; the next steps of that
+    branch replay it. Before each replay the host copies the step's batch
+    into the static batch and the plan's numbers into the graph's own
+    scalars. When the binding changes (a state whose tensors were
+    rebound, another batch layout, another TF32 setting) every graph is
+    dropped and captured anew; nothing is copied into buffers of another
+    layout. A failed capture or replay raises.
+    """
+
+    def __init__(self, config: ExperimentConfig, tx: optim.Transform, device: torch.device):
+        self.config, self.tx, self.device = config, tx, device
+        self.stream = torch.cuda.Stream(device)
+        self.binding = None
+        self.graphs: Dict = {}
+        self.pool = None
+        self.batch: Dict[str, torch.Tensor] = {}
+
+    def _bind(self, state: TrainState, stacked: Dict[str, torch.Tensor]) -> None:
+        backends = torch.backends
+        binding = (
+            tuple(t.data_ptr() for t in _state_tensors(state)),
+            tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in stacked.items()),
+            (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32,
+             backends.cudnn.benchmark, backends.cudnn.deterministic,
+             torch.get_float32_matmul_precision()),
+        )
+        if binding == self.binding:
+            return
+        self.graphs.clear()
+        self.pool = None
+        self.batch = {k: torch.empty(v.shape[1:], dtype=v.dtype, device=self.device)
+                      for k, v in stacked.items()}
+        self.binding = binding
+
+    def _warm_up_and_capture(self, state: TrainState, hyper, row: torch.Tensor):
+        scalars = row[:len(optim.hyper_leaves(hyper))].clone()
+        filled = optim.hyper_fill(hyper, scalars)
+        params = list(param_tree(state.models).values())
+        current = torch.cuda.current_stream(self.device)
+        for p in params:
+            p.grad = None
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            metrics = _train_body(self.config, self.tx, state, self.batch, filled)
+        current.wait_stream(self.stream)
+        # The capture's backward makes fresh gradients, which each replay
+        # then overwrites (it would add to gradients that were there).
+        grads = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        graph = torch.cuda.CUDAGraph()
+        warp_kernels.CAPTURED.clear()
+        # On the warm-up's stream; thread_local: the prefetch thread may
+        # upload while this captures.
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            static = _train_body(self.config, self.tx, state, self.batch, filled)
+        if self.pool is None:
+            self.pool = graph.pool()
+        # .grad: the warm-up step's values, not the capture's unwritten ones.
+        for p, g in zip(params, grads):
+            if g is not None:
+                p.grad.copy_(g)
+        self.graphs[optim.hyper_key(hyper)] = _Captured(
+            graph, scalars, static, collections.Counter(warp_kernels.CAPTURED))
+        return metrics
+
+    def __call__(self, state: TrainState, stacked: Dict[str, torch.Tensor]):
+        plans, opt_states = [], []
+        opt_state = state.opt_state
+        for _ in range(_steps_in(stacked)):
+            hyper, opt_state = self.tx.plan(opt_state)
+            plans.append(hyper)
+            opt_states.append(opt_state)
+        table = _hyper_table(plans, self.device)
+        self._bind(state, stacked)
+        for k, hyper in enumerate(plans):
+            for name, t in self.batch.items():
+                t.copy_(stacked[name][k])
+            captured = self.graphs.get(optim.hyper_key(hyper))
+            if captured is None:
+                metrics = self._warm_up_and_capture(state, hyper, table[k])
+            else:
+                captured.scalars.copy_(table[k, :captured.scalars.numel()])
+                captured.graph.replay()
+                warp_kernels.LAUNCHES.update(captured.launches)
+                metrics = captured.metrics
+            state.opt_state = opt_states[k]
+            state.step += 1
+        # The replays' outputs are overwritten by the next call.
+        return state, {k: v.clone() for k, v in metrics.items()}
+
+
+def _steps_in(stacked: Dict) -> int:
+    """K, the leading dimension every entry of a stacked batch shares."""
+    ks = {int(v.shape[0]) for v in stacked.values()}
+    if len(ks) != 1 or min(ks) < 1:
+        raise ValueError(f"a stacked batch needs one leading dimension K >= 1, got {sorted(ks)}")
+    return ks.pop()
+
+
+def make_scan_train_step(config: ExperimentConfig, mesh=None, unroll: int = 1,
+                         device: str | torch.device | None = None
+                         ) -> Callable[[TrainState, Dict[str, np.ndarray]], tuple]:
+    """Several train steps per call (the reference's ``lax.scan`` of
+    ``make_train_step``'s body); the reference's parameters, then
+    ``device``.
+
+    Returns ``fn(state, stacked_batch) -> (state, metrics of the last
+    step)``. K, the number of steps, is the stacked batch's leading
+    dimension (:func:`stack_batches`; numpy arrays, or tensors on the
+    device such as ``data.pipeline.prefetch_to_device`` hands out). The K
+    steps are :func:`make_train_step`'s, in order, on the K batches.
+
+    On a GPU (the default, ``cuda``) the whole step (forward, backward,
+    gradient norm and clip, solver update, BatchNorm statistics) is
+    captured once as a CUDA graph and replayed per step, so the host
+    launches one graph instead of the step's ~3000 kernels. The first call
+    runs its first step eagerly, the real first step of the run, and
+    captures after it; with ``iter_size > 1`` each of the solver's two
+    branches does so once (``_GraphedSteps``). On the CPU (``device="cpu"``)
+    the same step body runs K times eagerly.
+
+    Not ported: ``mesh`` (data parallel, ROADMAP A.8) raises.
+    ``unroll != 1`` raises: it unrolls the reference's compiled scan loop,
+    and a CUDA graph replays every step as captured, with no loop to unroll.
+    """
+    if mesh is not None:
+        raise NotImplementedError("make_scan_train_step over a device mesh is not ported yet")
+    if unroll != 1:
+        raise NotImplementedError(
+            f"unroll={unroll}: the port replays a CUDA graph of one step per step, "
+            "so there is no scan loop to unroll; use unroll=1")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        graphs = _GraphedSteps(config, make_optimizer(config), dev)
+
+        def multi_step(state: TrainState, stacked: Dict[str, np.ndarray]):
+            _steps_in(stacked)
+            return graphs(state, batch_to_device(stacked, dev))
+
+        return multi_step
+
+    step_fn = make_train_step(config, dev)
+
+    def multi_step(state: TrainState, stacked: Dict[str, np.ndarray]):
+        for k in range(_steps_in(stacked)):
+            state, metrics = step_fn(state, {name: v[k] for name, v in stacked.items()})
+        return state, metrics
+
+    return multi_step
 
 
 class SolverSignals:
@@ -392,14 +623,24 @@ def fit(
     ``sigint_effect`` / ``sighup_effect`` are :class:`SolverSignals`'
     actions.
 
+    ``steps_per_call`` = K > 1 runs :func:`make_scan_train_step` (on a
+    GPU, a CUDA graph of the step replayed per step) on stacks of K
+    batches (``data.pipeline.stacked_batches``, from the resumed step on;
+    the last stack holds exactly the steps left), and the rules above
+    become the reference's: the loss terms are logged after a call whose
+    last step ``last`` has ``last % log_every < K``, validation runs when
+    ``(last + 1) % eval_every < K`` and a snapshot is written when
+    ``(last + 1) % checkpoint_every < K``, each also after the last step;
+    signals are checked between calls. K = 1 is :func:`make_train_step`,
+    one eager step per batch.
+
     Not ported yet: a ``mesh`` (data parallel over several cards, ROADMAP
-    A.8) and several steps per call (``steps_per_call > 1``, A.3); they
-    raise ``NotImplementedError``.
+    A.8) raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError("fit over a device mesh is not ported yet")
-    if steps_per_call != 1:
-        raise NotImplementedError("steps_per_call > 1 is not ported yet")
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     dev = resolve_device(device)
     if state is None:
         state = create_state(config, dev)
@@ -407,7 +648,8 @@ def fit(
             state = ckpt_io.restore_weights(config.init_from, state)
         if config.init_feat_from:
             state = ckpt_io.restore_param_subtree(config.init_feat_from, state, "feat")
-    step_fn = make_train_step(config, dev)
+    K = steps_per_call
+    step_fn = make_train_step(config, dev) if K == 1 else make_scan_train_step(config, device=dev)
     eval_fn = None
     if eval_iter is not None and eval_every > 0:
         eval_fn = make_eval_step(config, dev)
@@ -424,9 +666,10 @@ def fit(
         if mgr.latest_step() != state.step:
             ckpt_io.save(mgr, state)
 
-    batches = data_iter
+    source = data_iter if K == 1 else stacked_batches(data_iter, K, state.step, num_steps)
+    batches = source
     if prefetch > 0:
-        batches = prefetch_to_device(data_iter, dev, buffer_size=prefetch)
+        batches = prefetch_to_device(source, dev, buffer_size=prefetch)
 
     steady_t0 = None
     steady_base = state.step
@@ -453,19 +696,20 @@ def fit(
                     steady_t0 = time.perf_counter()
                     steady_base = i
                 last = i - 1
-                if log_fn is not None and (last % config.log_every == 0 or i >= num_steps):
+                if log_fn is not None and (last % config.log_every < K or i >= num_steps):
                     logged = {k: float(v) for k, v in metrics.items()}
                     logged["steps_per_sec"] = (i - steady_base) / max(
                         time.perf_counter() - steady_t0, 1e-9
                     )
                     log_fn(last, logged)
-                if eval_fn is not None and (i % eval_every == 0 or i >= num_steps):
+                if eval_fn is not None and ((last + 1) % eval_every < K or i >= num_steps):
                     val = run_validation(eval_fn, state.models, eval_iter, eval_steps)
                     if log_fn is not None:
                         log_fn(last, val)
-                if mgr is not None and (i % config.checkpoint_every == 0 or i >= num_steps):
+                if mgr is not None and ((last + 1) % config.checkpoint_every < K
+                                        or i >= num_steps):
                     snapshot()
     finally:
-        if batches is not data_iter:
+        if batches is not source:
             batches.close()  # stops the producer thread
     return state

@@ -326,19 +326,31 @@ def state_dict(state: TrainState) -> Dict[str, Any]:
     }
 
 
+def _copy_into(dst: Any, src: Any) -> Any:
+    """``src``'s numbers in ``dst``'s containers, with ``src``'s tensors
+    copied into ``dst``'s (the same structure, :func:`_same_structure`)."""
+    if torch.is_tensor(dst):
+        return dst.copy_(src)
+    if type(dst) in (tuple, list):
+        return type(dst)(_copy_into(a, b) for a, b in zip(dst, src))
+    return src
+
+
 def load_state_dict(state: TrainState, d: Dict[str, Any]) -> TrainState:
     """Load :func:`state_dict`'s output into ``state`` in place (onto its
     networks' device). The stage's networks, the solver's parameter order
-    and the solver state's structure must be the state's own."""
+    and the solver state's structure must be the state's own. Every tensor
+    keeps its storage (parameters, BatchNorm statistics, the solver's
+    tensors), so a CUDA graph captured on ``state`` stays valid."""
     nets = {name: net for name, net in zip(Models._fields, state.models) if net is not None}
     if sorted(d["nets"]) != sorted(nets):
         raise KeyError(f"checkpoint networks {sorted(d['nets'])}, the state's {sorted(nets)}")
     if list(d["param_keys"]) != list(param_tree(state.models)):
         raise ValueError("the checkpoint's solver parameter order differs from the state's")
     _same_structure(state.opt_state, d["opt_state"])
-    device = next(iter(param_tree(state.models).values())).device
     for name, net in nets.items():
         net.load_state_dict(d["nets"][name], strict=True)
-    state.opt_state = _map_tree(d["opt_state"], lambda t: t.to(device, copy=True))
+    with torch.no_grad():
+        state.opt_state = _copy_into(state.opt_state, d["opt_state"])
     state.step = int(d["step"])
     return state

@@ -3,20 +3,27 @@ the GPU (the device-breakdown part of ``depthvo_tpu/utils/profiling.py``'s
 role).
 
     python -m depthvo_tpu_torch.utils.profiling --mode train --variant full_feat --batches 5
+    python -m depthvo_tpu_torch.utils.profiling --mode train --steps-per-call 8 --batches 3
     python -m depthvo_tpu_torch.utils.profiling --mode eval --variant full_feat --batches 5
 
-runs ``make_train_step`` (``--mode train``) or ``make_eval_step``
+runs ``make_train_step`` (``--mode train``), ``make_scan_train_step``
+(``--mode train --steps-per-call K``, K > 1: the step as a CUDA graph,
+replayed K times per call on a stack of K batches already on the device;
+the reference's ``train_step_scan`` mode) or ``make_eval_step``
 (``--mode eval``) on synthetic uint8 batches (random weights from
-``--seed``), warms up, then traces ``--batches`` steps with
+``--seed``), warms up, then traces ``--batches`` calls with
 ``torch.profiler`` and prints one JSON line: host wall time per step
 (traced, so with the profiler's overhead), device kernel time per step
 and the busy share of the wall time, kernel launches per step (all
 kernels, and the warp kernels' own counters), the device time by
 category (the warp kernels, convolutions, matrix products, copies, the
 rest), each warp kernel's device time, and the kernels that take the
-most device time; then, for one more step with the allocator's history
-on, its peak of allocated bytes and the bytes live at that peak by the
-line of this package that allocated them. It needs a GPU.
+most device time, all per step; then, for one more step with the
+allocator's history on, its peak of allocated bytes and the bytes live
+at that peak by the line of this package that allocated them (with
+K > 1 instead: the peak allocated over the first call, which captures
+the graph, and the bytes the allocator still holds once its cache is
+emptied, the graph's private pool included). It needs a GPU.
 """
 
 from __future__ import annotations
@@ -66,16 +73,17 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def _trace(run_step, data, top_kernels: int) -> Dict:
+def _trace(run_step, data, top_kernels: int, steps_per_run: int = 1) -> Dict:
     """Warm up on two batches, then trace one ``run_step(batch)`` per batch
-    of ``data`` and sum the device kernels."""
+    of ``data`` (``steps_per_run`` steps each) and sum the device kernels,
+    per step."""
     from torch.profiler import ProfilerActivity, profile
 
     for batch in data[:2]:
         run_step(batch)
     torch.cuda.synchronize()
     warp_kernels.reset_launches()
-    n = len(data)
+    n = len(data) * steps_per_run
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in data:
@@ -174,17 +182,27 @@ def _memory(run_step, batch, top: int) -> Dict:
 
 
 def profile(mode: str, variant: str, batches: int = 5, batch_size: int = 4,
-            seed: int = 0, top_kernels: int = 15) -> Dict:
-    """Trace ``batches`` train steps (``mode="train"``) or held-out loss
-    passes (``mode="eval"``) on the GPU, then record the allocations of
-    one more."""
+            seed: int = 0, top_kernels: int = 15, steps_per_call: int = 1) -> Dict:
+    """Trace ``batches`` calls of ``steps_per_call`` train steps
+    (``mode="train"``) or held-out loss passes (``mode="eval"``) on the
+    GPU, then record the allocations of one more."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile measures the GPU; no CUDA device is available")
     dev = torch.device("cuda")
     cfg = getattr(configs, variant)(batch_size=batch_size, seed=seed)
     scenes = SyntheticScenes(cfg, seed=cfg.seed + 1_000_003, u8=True)
     data = [scenes.batch(batch_size) for _ in range(batches)]
-    if mode == "train":
+    K = steps_per_call
+    if mode == "train" and K > 1:
+        state = create_state(cfg, dev)
+        scan = loop.make_scan_train_step(cfg, device=dev)
+        stacked = loop.batch_to_device(
+            loop.stack_batches([data[k % batches] for k in range(K)]), dev)
+        data = [stacked] * batches
+
+        def run_step(batch):
+            scan(state, batch)
+    elif mode == "train":
         state = create_state(cfg, dev)
         step_fn = loop.make_train_step(cfg, device=dev)
 
@@ -199,10 +217,18 @@ def profile(mode: str, variant: str, batches: int = 5, batch_size: int = 4,
             eval_fn(models, batch)
     else:
         raise ValueError(f"mode must be 'train' or 'eval', got {mode!r}")
-    out = {"mode": mode, "variant": variant, "batch": batch_size, "steps": batches,
-           "compute_dtype": cfg.model.compute_dtype}
-    out.update(_trace(run_step, data, top_kernels))
-    out["memory"] = _memory(run_step, data[0], top_kernels)
+    out = {"mode": mode, "variant": variant, "batch": batch_size, "steps": batches * K,
+           "steps_per_call": K, "compute_dtype": cfg.model.compute_dtype}
+    if K == 1:
+        out.update(_trace(run_step, data, top_kernels))
+        out["memory"] = _memory(run_step, data[0], top_kernels)
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    out.update(_trace(run_step, data, top_kernels, K))
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    out["memory"] = {"max_memory_allocated": peak,
+                     "reserved_after_empty_cache": torch.cuda.memory_reserved()}
     return out
 
 
@@ -214,9 +240,11 @@ def main(argv=None) -> int:
     p.add_argument("--batches", type=int, default=5)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="train mode: K > 1 replays a CUDA graph of the step K times per call")
     args = p.parse_args(argv)
     print(json.dumps(profile(args.mode, args.variant, args.batches, args.batch_size,
-                             args.seed)))
+                             args.seed, steps_per_call=args.steps_per_call)))
     return 0
 
 
