@@ -118,7 +118,39 @@ with a nonzero exit code:
              the same over 13 steady steps of a 14-step run, the host
              ring's ms per batch, the checkpoint's bytes and its
              save and restore ms, beside the card's name and power limit.
-8. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
+8. eval    - the eval runner and the rest of DepthNet, in a temporary
+             directory: a KITTI raw drive of 70 frames at 1242x375 with
+             velodyne scans (4000 points each, 5-75 m) and both
+             calibration files; ``cli prep-eigen`` writes the ground truth
+             and the list; ``cli eval-depth`` (batch 16: 4 batches
+             and a padded tail of 6) on a float32 checkpoint of
+             ``DepthVO.from_random(seed=0)``'s weights, TF32 off, on the
+             card (the eval path's own main path: counts reset just
+             before and read just after, no warp kernel launched) against
+             the CPU: abs_rel/sq_rel/rmse/rmse_log <= 1e-4 relative,
+             a1..a3 within one pixel per frame (1/n_valid averaged); the
+             ``split`` provenance block; ``--pred-path`` on its
+             ``--save-preds`` output gives the same table with no model.
+             Recorded on the default (bfloat16) config:
+             ``run_depth_eval``'s frames/s, the sweep's frames/s, peak
+             allocated bytes and traced device busy share, and the host's
+             decode, resize and metrics seconds. ``cli eval-odom`` on a
+             24-frame odometry sequence at 1241x376: float32
+             translations card vs CPU <= 1e-4 relative, the pose file
+             scored alone (``--pose-file``) gives the same scores;
+             frames/s of the bfloat16 trajectory. ``cli infer`` on 20
+             PNGs: the ``*_depth.npy`` files equal ``DepthVO.depth`` of
+             the same padded batches; its frames/s. The subpixel and
+             fast-final heads: float32 depth card vs CPU <= 1e-4 relative;
+             ``cli train --config`` of 2 steps with each head: finite
+             losses and the train phase's launches per step. ``remat``
+             against the standard step (float32, TF32 off, cuDNN
+             deterministic, batch 2), one eager step and one
+             ``make_scan_train_step`` call of K=2: every parameter,
+             BatchNorm statistic, solver tensor and metric bit for bit;
+             the bfloat16 batch-4 train step's peak allocated bytes with
+             and without ``remat``.
+9. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
              uint8 batch and pose of its frame pairs; shapes, finiteness
              and latency.
 
@@ -1360,6 +1392,477 @@ def phase_kitti_ckpt(variant: str, dev, smi: str, premade_ms: float):
     emit(out)
 
 
+EVAL_FRAMES = 70  # 4 batches of 16 and a padded tail of 6
+EVAL_BATCH = 16
+ODOM_FRAMES = 24
+ODOM_HW = (376, 1241)  # KITTI odometry's size for sequences 04-12
+INFER_FRAMES = 20
+VELO_POINTS = 4000
+# KITTI raw 2011_09_26's velodyne-to-camera extrinsics (the axis swap and
+# the lever arm) and its left camera's rectified projection.
+VELO_R = ((7.533745e-03, -9.999714e-01, -6.166020e-04),
+          (1.480249e-02, 7.280733e-04, -9.998902e-01),
+          (9.998621e-01, 7.523790e-03, 1.480755e-02))
+VELO_T = (-4.069766e-03, -7.631618e-02, -2.717806e-01)
+P_RECT_02 = ((7.215377e02, 0.0, 6.095593e02, 4.485728e01),
+             (0.0, 7.215377e02, 1.728540e02, 2.163791e-01),
+             (0.0, 0.0, 1.0, 2.745884e-03))
+
+
+def write_velodyne_drive(root: str, cfg):
+    """One KITTI raw drive for the Eigen protocol: ``EVAL_FRAMES`` left
+    frames at 1242x375 (9 rendered synthetic scenes, shifted sideways by
+    37 px per pass), a velodyne scan per frame (``VELO_POINTS`` float32
+    x, y, z, reflectance points from 5 to 75 m in front of the camera, over
+    the lower 60% of the image) and both calibration files. Returns the
+    drive's name and its frames."""
+    import os
+
+    import numpy as np
+
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+
+    date, drive = "2011_09_26", "2011_09_26_drive_0002_sync"
+    H, W = KITTI_HW
+    big = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, height=H, width=W))
+    scenes = SyntheticScenes(big, seed=31, num_scenes=9, u8=True).fixed_batch(9)["image_t"]
+    ddir = os.path.join(root, date, drive)
+    for sub in ("image_02", "velodyne_points"):
+        os.makedirs(os.path.join(ddir, sub, "data"))
+    P = np.array(P_RECT_02)
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = VELO_R, VELO_T
+    cam_to_velo = np.linalg.inv(T)
+    rng = np.random.default_rng(0)
+    frames = [np.roll(scenes[i % 9], 37 * (i // 9), axis=1) for i in range(EVAL_FRAMES)]
+    for i, img in enumerate(frames):
+        write_png(os.path.join(ddir, "image_02", "data", f"{i:010d}.png"), img)
+        u = rng.uniform(0, W, VELO_POINTS)
+        v = rng.uniform(0.4 * H, H, VELO_POINTS)
+        z = rng.uniform(5.0, 75.0, VELO_POINTS)
+        cam = np.stack([(u - P[0, 2]) * z / P[0, 0], (v - P[1, 2]) * z / P[1, 1], z,
+                        np.ones(VELO_POINTS)])
+        velo = (cam_to_velo @ cam)[:3].T
+        scan = np.concatenate([velo, rng.uniform(0, 1, (VELO_POINTS, 1))], axis=1)
+        scan.astype(np.float32).tofile(
+            os.path.join(ddir, "velodyne_points", "data", f"{i:010d}.bin"))
+    flat = lambda m: " ".join(f"{x:e}" for x in np.ravel(m))  # noqa: E731
+    with open(os.path.join(root, date, "calib_cam_to_cam.txt"), "w") as f:
+        f.write(f"S_rect_02: {W:.6e} {H:.6e}\nR_rect_00: {flat(np.eye(3))}\n"
+                f"P_rect_02: {flat(P)}\n")
+    with open(os.path.join(root, date, "calib_velo_to_cam.txt"), "w") as f:
+        f.write(f"R: {flat(VELO_R)}\nT: {flat(VELO_T)}\n")
+    return drive, frames
+
+
+def write_odometry_sequence(root: str, frames) -> None:
+    """KITTI odometry sequence 09: ``ODOM_FRAMES`` left frames at
+    1241x376 (the eval drive's frames, one column cut and the last row
+    repeated), calib.txt, and ground-truth poses along a curve at 5 m per
+    frame (115 m: the devkit's 100 m segments fit)."""
+    import os
+
+    import numpy as np
+
+    from depthvo_tpu_torch.eval.odometry import write_kitti_poses
+
+    d = os.path.join(root, "sequences", "09", "image_2")
+    os.makedirs(d)
+    h, w = ODOM_HW
+    for i, img in enumerate(frames[:ODOM_FRAMES]):
+        img = np.concatenate([img, img[-1:]], axis=0)[:h, :w]
+        write_png(os.path.join(d, f"{i:06d}.png"), np.ascontiguousarray(img))
+    P = " ".join(f"{x:e}" for x in np.ravel(P_RECT_02))
+    with open(os.path.join(root, "sequences", "09", "calib.txt"), "w") as f:
+        for cam in range(4):
+            f.write(f"P{cam}: {P}\n")
+    poses, T = [np.eye(4)], np.eye(4)
+    for k in range(ODOM_FRAMES - 1):
+        a = 0.02 * np.sin(k / 3.0)
+        step = np.eye(4)
+        step[0, 0] = step[2, 2] = np.cos(a)
+        step[0, 2], step[2, 0] = np.sin(a), -np.sin(a)
+        step[2, 3] = 5.0
+        T = T @ step
+        poses.append(T.copy())
+    os.makedirs(os.path.join(root, "poses"))
+    write_kitti_poses(np.asarray(poses), os.path.join(root, "poses", "09.txt"))
+
+
+@contextlib.contextmanager
+def _quiet():
+    """No warnings: the eval's non-canonical split warns on every run."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        yield
+
+
+def _cli_json(argv) -> tuple[dict, float]:
+    """``cli.main(argv)``'s printed JSON and the call's seconds."""
+    from depthvo_tpu_torch import cli
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed), _quiet():
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    text = printed.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}: {text[-2000:]}")
+    return json.loads(text[text.index("{"):text.rindex("}") + 1]), seconds
+
+
+def _same_depth_table(got: dict, ref: dict, tol_a: float) -> dict:
+    """Continuous metrics <= METRIC_RTOL relative, a1..a3 within ``tol_a``
+    (one pixel per frame: 1 / n_valid averaged over the frames)."""
+    cont = {k: abs(got[k] - ref[k]) / abs(ref[k])
+            for k in ("abs_rel", "sq_rel", "rmse", "rmse_log")}
+    thr = {k: abs(got[k] - ref[k]) for k in ("a1", "a2", "a3")}
+    if not (max(cont.values()) <= METRIC_RTOL and max(thr.values()) <= tol_a):
+        raise AssertionError(f"depth tables differ: {got} vs {ref} (a tolerance {tol_a})")
+    return {"continuous_max_rel": max(cont.values()), "thresholds_max_abs": max(thr.values()),
+            "thresholds_tolerance": tol_a}
+
+
+def phase_eval(variant: str, dev, smi: str):
+    """The eval runner users run (A.4) and the rest of DepthNet (A.5), in a
+    temporary directory, at the variant's width."""
+    import hashlib
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depthvo_tpu_torch import DepthVO, cli, configs
+    from depthvo_tpu_torch.configs import base as config_base
+    from depthvo_tpu_torch.data.kitti import KittiOdometrySequence, load_images_u8
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.eval import runner
+    from depthvo_tpu_torch.eval.depth_metrics import compute_depth_metrics, eigen_crop_mask
+    from depthvo_tpu_torch.eval.odometry import read_kitti_poses
+    from depthvo_tpu_torch.eval.resize import resize_bilinear_f32
+    from depthvo_tpu_torch.io import checkpoint as ckpt
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+    from depthvo_tpu_torch.train import loop, state as tstate
+
+    cfg = getattr(configs, variant)(batch_size=BATCH)
+    cfg32 = _f32_config(cfg)
+    h, w = cfg.model.height, cfg.model.width
+    out = {"phase": "eval", "config": variant, "nvidia_smi": smi, "hw": [h, w],
+           "eval_frames": EVAL_FRAMES, "batch": EVAL_BATCH}
+    tmp = tempfile.TemporaryDirectory(prefix="eval-")
+    path = lambda *p: os.path.join(tmp.name, *p)  # noqa: E731
+    root = path("kitti")
+    t0 = time.perf_counter()
+    drive, drive_frames = write_velodyne_drive(root, cfg)
+    out["write_tree_seconds"] = time.perf_counter() - t0
+
+    # (1) prep-eigen: ground truth from the scans, and the list.
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["prep-eigen", "--kitti-root", root, "--output-dir", path("eigen"),
+                       "--scenes", drive])
+    split = path("eigen", "eigen_list.txt")
+    lines = open(split).read().splitlines()
+    if rc != 0 or lines[0] != "# split-source: derived-scene-list" or len(lines) != 1 + EVAL_FRAMES:
+        raise AssertionError(f"prep-eigen: rc {rc}, {lines[:2]}, {len(lines)} lines")
+    gts = [np.load(ln.split()[1]) for ln in lines[1:]]
+    n_valid = [int(((g > 1e-3) & (g < 80.0) & eigen_crop_mask(*g.shape)).sum()) for g in gts]
+    if min(n_valid) < 100 or gts[0].shape != KITTI_HW:
+        raise AssertionError(f"prep-eigen gt: shape {gts[0].shape}, valid pixels {min(n_valid)}")
+    tol_a = float(np.mean([1.0 / n for n in n_valid]))
+    out["prep_eigen"] = {"seconds": time.perf_counter() - t0, "frames": len(gts),
+                         "valid_px_per_frame_min": min(n_valid)}
+
+    # (2) eval-depth, float32 with TF32 off: the card against the CPU, on
+    # a checkpoint of DepthVO.from_random(seed=0)'s weights with its
+    # float32 config.
+    c32 = path("ck32")
+    ckpt.save(ckpt.make_manager(c32), tstate.create_state(cfg32, torch.device("cpu"),
+                                                         torch.Generator().manual_seed(0)))
+    config_base.save_json(cfg32, os.path.join(c32, "config.json"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    common = ["eval-depth", "--kitti-root", root, "--split-file", split,
+              "--checkpoint-dir", c32]
+    wk.reset_launches()
+    card, card_s = _cli_json(common + ["--device", "cuda", "--save-preds", path("preds")])
+    launches = _check_counts({}, 1)  # the eval path launches no warp kernel
+    cpu, cpu_s = _cli_json(common + ["--device", "cpu"])
+    check = _same_depth_table(card, cpu, tol_a)
+    want_split = {"split_file": os.path.abspath(split), "n_frames": EVAL_FRAMES,
+                  "canonical": False, "source": "derived-scene-list", "median_scale": True,
+                  "sha256": hashlib.sha256(open(split, "rb").read()).hexdigest(),
+                  "pinned": False}
+    if card["split"] != want_split or card["quant"] != "off":
+        raise AssertionError(f"split provenance {card['split']}, quant {card['quant']}")
+    saved, saved_s = _cli_json(["eval-depth", "--kitti-root", root, "--split-file", split,
+                                "--pred-path", path("preds")])
+    names = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
+    if any(saved[k] != card[k] for k in names) or saved["quant"] != "external":
+        raise AssertionError(f"--pred-path table {saved} differs from the run's {card}")
+    out["eval_depth_f32"] = {"card": {k: card[k] for k in names}, "card_vs_cpu": check,
+                             "launches": launches, "split": card["split"],
+                             "card_cli_seconds": card_s, "cpu_cli_seconds": cpu_s,
+                             "pred_path_equal": True, "pred_path_cli_seconds": saved_s}
+
+    # (3) run_depth_eval on the default (bfloat16) config: recorded.
+    torch.backends.cudnn.allow_tf32 = True
+    model = DepthVO.from_random(cfg, seed=0, device=dev)
+    runs = []
+    for _ in range(2):  # the first pays cuDNN's and the allocator's set-up
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), _quiet():
+            table = runner.run_depth_eval(None, root, split, height=h, width=w,
+                                          batch_size=EVAL_BATCH, model=model)
+        runs.append(time.perf_counter() - t0)
+    if not all(math.isfinite(table[k]) for k in names):
+        raise AssertionError(f"bf16 depth table {table}")
+    # Its parts as run_depth_eval runs them: the decode on 8 host threads,
+    # the sweep, the sweep with the resize to the ground truth on 4
+    # threads as its batches drain, the metrics.
+    t0 = time.perf_counter()
+    frames = load_images_u8([os.path.join(root, ln.split()[0]) for ln in lines[1:]], h, w)
+    decode_s = time.perf_counter() - t0
+    runner.predict_depths(model, frames, EVAL_BATCH)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()  # the weights, and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preds = runner.predict_depths(model, frames, EVAL_BATCH)
+    sweep_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    resized = runner.predict_depths(model, frames, EVAL_BATCH, postprocess=lambda i, p: (
+        resize_bilinear_f32(p, *gts[i].shape)))
+    resize_sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p, g in zip(preds, gts):
+        resize_bilinear_f32(p, *g.shape)
+    resize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compute_depth_metrics(resized, gts)
+    metrics_s = time.perf_counter() - t0
+    batches = -(-EVAL_FRAMES // EVAL_BATCH)
+    traced = _traced_call(lambda: runner.predict_depths(model, frames, EVAL_BATCH), batches)
+    out["eval_depth_bf16"] = {
+        "table": {k: table[k] for k in names},
+        "run_depth_eval_seconds": runs, "frames_per_s_run_depth_eval": EVAL_FRAMES / runs[-1],
+        "sweep_seconds": sweep_s, "frames_per_s_sweep": EVAL_FRAMES / sweep_s,
+        "sweep_peak_allocated_bytes": peak, "live_before_sweep_bytes": live,
+        "sweep_peak_above_live_bytes": peak - live,
+        "sweep_with_resize_seconds": resize_sweep_s, "host_decode_seconds": decode_s,
+        "host_resize_seconds_one_thread": resize_s, "host_metrics_seconds": metrics_s,
+        # the host's share: decode, the resize beyond the sweep, metrics
+        "host_share": (decode_s + resize_sweep_s - sweep_s + metrics_s) / runs[-1],
+        "traced_sweep": {k: traced[k] for k in ("kernels_per_step", "device_busy_ms_per_step",
+                                                "traced_wall_ms_per_step",
+                                                "device_busy_share", "warp_kernels")},
+    }
+    del model
+
+    # (4) eval-odom: float32 card against CPU, the pose file scored alone,
+    # frames/s of the bfloat16 sweep.
+    odom = path("odom")
+    write_odometry_sequence(odom, drive_frames)
+    del drive_frames
+    torch.backends.cudnn.allow_tf32 = False
+    common = ["eval-odom", "--kitti-root", odom, "--checkpoint-dir", c32]
+    o_card, o_card_s = _cli_json(common + ["--device", "cuda", "--output-dir", path("o_card")])
+    o_cpu, _ = _cli_json(common + ["--device", "cpu", "--output-dir", path("o_cpu")])
+    tc = read_kitti_poses(path("o_card", "09.txt"))[:, :3, 3]
+    tp = read_kitti_poses(path("o_cpu", "09.txt"))[:, :3, 3]
+    t_rel = float(np.abs(tc - tp).max() / np.abs(tp).max())
+    if not t_rel <= METRIC_RTOL or o_card["frames"] != ODOM_FRAMES:
+        raise AssertionError(f"eval-odom trajectory card vs CPU: {t_rel}, {o_card}")
+    scored, _ = _cli_json(["eval-odom", "--kitti-root", odom, "--output-dir", "",
+                           "--pose-file", path("o_card", "09.txt")])
+    score_keys = ("t_err_pct", "r_err_deg_per_100m", "ate_m", "snippet_ate_mean")
+    pose_rel = max(abs(scored[k] - o_card[k]) / max(abs(o_card[k]), 1e-12) for k in score_keys)
+    if not pose_rel <= 1e-5:  # the pose file holds 10 significant digits
+        raise AssertionError(f"--pose-file scores {scored} vs the run's {o_card}")
+    torch.backends.cudnn.allow_tf32 = True
+    model = DepthVO.from_random(cfg, seed=0, device=dev)
+    seq = KittiOdometrySequence(odom, "09", h, w)
+    runner.predict_trajectory(model, seq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.predict_trajectory(model, seq)
+    traj_s = time.perf_counter() - t0
+    seq_frames = seq.frames_u8()
+    t0 = time.perf_counter()
+    model.pose_sequence(seq_frames)
+    pose_s = time.perf_counter() - t0
+    out["eval_odom"] = {"f32_card": {k: o_card[k] for k in score_keys},
+                        "f32_translation_card_vs_cpu_rel": t_rel,
+                        "pose_file_scores_max_rel": pose_rel, "f32_card_cli_seconds": o_card_s,
+                        "bf16_frames_per_s_with_decode": ODOM_FRAMES / traj_s,
+                        "bf16_frames_per_s_pose_sequence": ODOM_FRAMES / pose_s}
+
+    # (5) infer over a directory of PNGs: the files equal DepthVO.depth of
+    # the same frames in the same padded batches; frames/s of the sweep.
+    images = path("infer_in")
+    os.makedirs(images)
+    names_in = sorted(os.listdir(os.path.join(root, "2011_09_26", drive, "image_02", "data")))
+    for name in names_in[:INFER_FRAMES]:
+        shutil.copy(os.path.join(root, "2011_09_26", drive, "image_02", "data", name), images)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["infer", "--variant", variant, "--images", images, "--output-dir",
+                       path("infer_out"), "--device", "cuda"])
+    text = printed.getvalue()
+    fps = re.search(r"\(([\d.]+) frames/s steady", text)
+    if rc != 0 or not fps:
+        raise AssertionError(f"cli infer: rc {rc}, {text}")
+    icfg = getattr(configs, variant)(batch_size=EVAL_BATCH)
+    model = DepthVO.from_random(icfg, seed=0, device=dev)
+    fr = load_images_u8([os.path.join(images, n) for n in names_in[:INFER_FRAMES]], h, w)
+    padded = np.concatenate([fr, np.repeat(fr[-1:], (-len(fr)) % EVAL_BATCH, 0)])
+    want = np.concatenate([model.depth(padded[i:i + EVAL_BATCH])
+                           for i in range(0, len(padded), EVAL_BATCH)])[:INFER_FRAMES]
+    got = np.stack([np.load(path("infer_out", os.path.splitext(n)[0] + "_depth.npy"))
+                    for n in names_in[:INFER_FRAMES]])
+    infer_rel = float(np.abs(got - want).max() / np.abs(want).max())
+    if not infer_rel <= 1e-6:
+        raise AssertionError(f"infer outputs vs DepthVO.depth: {infer_rel}")
+    out["infer"] = {"frames": INFER_FRAMES, "frames_per_s_steady": float(fps.group(1)),
+                    "vs_depth_vo_max_rel": infer_rel}
+    del model
+    tmp.cleanup()
+    out["a5"] = _a5_checks(cfg, dev, frames[:2])
+    emit(out)
+
+
+def _with_model(cfg, **kw):
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **kw))
+
+
+def _a5_checks(cfg, dev, images) -> dict:
+    """The rest of DepthNet on the card: each head's depth in float32 (TF32
+    off, cuDNN deterministic) against the CPU's; ``cli train --config`` of
+    2 steps with each head (bfloat16, batch 4): finite losses and the train
+    phase's launches per step; ``remat`` against the standard step from the
+    same state, float32 batch 2, one eager step and one
+    ``make_scan_train_step`` call of K=2 (captured): every parameter,
+    BatchNorm statistic and solver tensor and the metrics bit for bit; and
+    the bfloat16 batch-4 train step's peak allocated bytes with and without
+    ``remat``."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depthvo_tpu_torch import DepthVO, cli
+    from depthvo_tpu_torch.configs import base as config_base
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+    from depthvo_tpu_torch.train import loop, state as tstate
+
+    backends = torch.backends
+
+    def exact(on: bool):
+        backends.cudnn.allow_tf32 = not on
+        backends.cuda.matmul.allow_tf32 = False
+        backends.cudnn.deterministic = on
+
+    out = {}
+    for head in ("subpixel_head", "fast_final_upsample"):
+        hcfg = _with_model(cfg, s2d_finest=False, **{head: True})
+        exact(True)
+        depth = {d: DepthVO.from_random(_f32_config(hcfg), seed=0, device=d).depth(images)
+                 for d in ("cuda", "cpu")}
+        rel = float(np.abs(depth["cuda"] - depth["cpu"]).max() / np.abs(depth["cpu"]).max())
+        if not rel <= METRIC_RTOL:
+            raise AssertionError(f"{head}: depth card vs CPU {rel}")
+        exact(False)
+        with tempfile.TemporaryDirectory(prefix="head-") as d:
+            cfg_path = os.path.join(d, "config.json")
+            config_base.save_json(hcfg, cfg_path)
+            argv = ["train", "--config", cfg_path, "--steps", "2", "--device", "cuda",
+                    "--log-every", "1"]
+            printed = io.StringIO()
+            wk.reset_launches()
+            with contextlib.redirect_stdout(printed):
+                rc = cli.main(argv)
+            launches = _check_counts(_train_launches(hcfg), 2)
+        logged = [dict(kv.split("=") for kv in ln.split(": ", 1)[1].split())
+                  for ln in printed.getvalue().splitlines() if ln.startswith("step ")]
+        losses = [{k: float(m[k]) for k in m if k.startswith("loss/")} for m in logged]
+        if rc != 0 or len(losses) != 2 or not all(
+                math.isfinite(v) for m in losses for v in m.values()):
+            raise AssertionError(f"cli train with {head}: rc {rc}, {losses}")
+        out[head] = {"f32_depth_card_vs_cpu_rel": rel, "cli_train": {
+            "argv": argv[:1] + ["--config", f"<{head} config>"] + argv[3:],
+            "launches": launches, "losses": losses}}
+
+    # remat against the standard step, bit for bit.
+    exact(True)
+    cfg32 = _f32_config(dataclasses.replace(cfg, batch_size=2))
+    params = tstate.init_params(cfg32, torch.Generator().manual_seed(0))
+    scenes = SyntheticScenes(cfg32, seed=41, u8=True)
+    host = [scenes.batch(2) for _ in range(2)]
+
+    def fresh(remat):
+        c = _with_model(cfg32, remat=remat)
+        models = tstate.load_params(tstate.build_models(c), params, dev).train()
+        return c, tstate.TrainState(0, models, tstate.make_optimizer(c).init(
+            tstate.param_tree(models)))
+
+    def steps(remat):
+        """(leaves, metrics) after one eager step, and after one call of
+        K=2 steps (an eager step, its capture, one replay)."""
+        c, st = fresh(remat)
+        st, m = loop.make_train_step(c, dev)(st, host[0])
+        eager = ({k: v.clone() for k, v in _state_leaves(st).items()}, m)
+        c, st = fresh(remat)
+        st, m = loop.make_scan_train_step(c, device=dev)(st, loop.stack_batches(host))
+        return eager, (_state_leaves(st), m)
+
+    def compare(standard, rematted, how) -> dict:
+        (a, ma), (b, mb) = standard, rematted
+        unequal = [k for k in a if not torch.equal(a[k], b[k])]
+        m_unequal = [k for k in ma if not torch.equal(ma[k], mb[k])]
+        if unequal or m_unequal or set(a) != set(b):
+            raise AssertionError(f"remat vs standard, {how}: {len(unequal)} tensors differ "
+                                 f"({unequal[:4]}), metrics {m_unequal}")
+        return {"tensors_bitwise_equal": len(a), "metrics_bitwise_equal": len(ma)}
+
+    runs = [steps(False), steps(True)]
+    remat_out = {how: compare(runs[0][i], runs[1][i], how)
+                 for i, how in enumerate(("eager_step", "scan_k2_captured"))}
+    del runs
+    exact(False)
+
+    # The bfloat16 batch-4 train step's peak, with and without remat.
+    for remat in (False, True):
+        c = _with_model(cfg, remat=remat)
+        st = tstate.create_state(c, dev, torch.Generator().manual_seed(0))
+        step = loop.make_train_step(c, dev)
+        b = SyntheticScenes(c, seed=43, num_scenes=BATCH, u8=True).fixed_batch(BATCH)
+        step(st, b)
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(st, b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        remat_out["remat" if remat else "standard"] = {
+            "peak_allocated_bytes": peak, "live_before_step_bytes": live,
+            "step_peak_above_live_bytes": peak - live,
+            "ms_per_step_eager": (time.perf_counter() - t0) * 1e3 / 3}
+        del st, step
+    out["remat"] = remat_out
+    return out
+
+
 def phase_serve(dev):
     import numpy as np
     import torch
@@ -1412,6 +1915,7 @@ def main() -> int:
     train_launches, premade_ms = phase_train("full_feat", dev)
     phase_scan("full_feat", dev, smi)
     phase_kitti_ckpt("full_feat", dev, smi, premade_ms)
+    phase_eval("full_feat", dev, smi)
     phase_serve(dev)
 
     summary = []

@@ -1,12 +1,14 @@
-"""The Eigen split of KITTI raw (the port's own copy of the numpy-only
-part of ``depthvo_tpu/data/eigen.py``).
+"""The Eigen split of KITTI raw (the port's own copy of
+``depthvo_tpu/data/eigen.py``, numpy only).
 
 ``EIGEN_TEST_SCENES`` are the drives the Eigen depth test frames come
 from; ``prep --eigen-train`` leaves them out of a training list, so that
 training never sees the evaluation scenes. ``parse_split_file`` and
-``enumerate_test_frames`` read a split. Generating ground-truth depth
-from the velodyne scans (the reference's ``prep_eigen``) belongs to the
-depth evaluation, which is not ported yet.
+``enumerate_test_frames`` read a split. ``prep_eigen`` generates the
+ground-truth depth maps from the velodyne scans (``data/velodyne.py``)
+and writes the list that ``eval-depth`` reads, with the
+``# split-source:`` header that ``eval/runner.py::run_depth_eval`` reads
+back.
 
 PROVENANCE NOTE (the reference's): ``EIGEN_TEST_SCENES`` is reconstructed
 from model knowledge of the public Eigen/monodepth ``test_scenes_eigen.txt``;
@@ -17,7 +19,9 @@ reproducible from it. Pass the canonical file for exact-protocol parity.
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 # Best-recall reconstruction of the Eigen test scene list (the drives the
@@ -102,3 +106,70 @@ def enumerate_test_frames(
             if ext == ".png" and stem in velo:
                 out.append((drive, int(stem)))
     return out
+
+
+def prep_eigen(
+    kitti_root: str,
+    out_dir: str,
+    split_file: Optional[str] = None,
+    scenes: Optional[Sequence[str]] = None,
+    cam: int = 2,
+) -> Tuple[int, str]:
+    """Generate gt depth maps + the eval split list for ``eval-depth``.
+
+    Writes ``<out_dir>/gt/<drive>_<frame>.npy`` (sparse gt depth at the
+    image's native resolution) and ``<out_dir>/eigen_list.txt`` whose
+    lines are ``<image_path_rel_to_root> <gt_npy_abs_path>`` — directly
+    consumable by ``eval-depth --split-file``.
+
+    Returns (num_frames, list_path). Frames whose velodyne scan is
+    missing are skipped with a warning count.
+    """
+    from depthvo_tpu_torch.data.velodyne import generate_gt_depth
+
+    frames = (
+        parse_split_file(split_file)
+        if split_file
+        else enumerate_test_frames(
+            kitti_root, scenes or EIGEN_TEST_SCENES, cam=cam
+        )
+    )
+    gt_dir = os.path.join(out_dir, "gt")
+    os.makedirs(gt_dir, exist_ok=True)
+    list_path = os.path.join(out_dir, "eigen_list.txt")
+    n, skipped = 0, 0
+    source = (
+        f"canonical {os.path.basename(split_file)}"
+        if split_file
+        else "derived-scene-list"
+    )
+    with open(list_path, "w") as lf:
+        # Provenance header read back by eval.runner.run_depth_eval: a
+        # derived (non-canonical) list is flagged so its metrics are
+        # never silently compared to published Eigen-697 tables.
+        lf.write(f"# split-source: {source}\n")
+        for drive, frame in frames:
+            date = drive.split("_drive_")[0]
+            # The image paired with the gt must come from the SAME camera
+            # the gt was projected into (cam=3 with image_02 frames would
+            # skew every metric by the stereo baseline).
+            img_rel = os.path.join(
+                date, drive, f"image_{cam:02d}", "data", f"{frame:010d}.png"
+            )
+            velo = os.path.join(
+                kitti_root, date, drive, "velodyne_points", "data",
+                f"{frame:010d}.bin",
+            )
+            if not os.path.isfile(os.path.join(kitti_root, img_rel)) or not os.path.isfile(velo):
+                skipped += 1
+                continue
+            depth = generate_gt_depth(kitti_root, drive, frame, cam=cam)
+            gt_path = os.path.abspath(
+                os.path.join(gt_dir, f"{drive}_{frame:010d}.npy")
+            )
+            np.save(gt_path, depth)
+            lf.write(f"{img_rel} {gt_path}\n")
+            n += 1
+    if skipped:
+        print(f"prep-eigen: skipped {skipped} frames with missing files")
+    return n, list_path

@@ -32,10 +32,16 @@ import numpy as np
 
 from depthvo_tpu_torch.data import native_loader
 
-try:  # optional: the native runtime decodes PNGs without it
-    from PIL import Image
-except ImportError:  # pragma: no cover
-    Image = None
+
+def _pil():
+    """PIL's ``Image``, imported at first use: it is optional (the native
+    runtime decodes PNGs without it), and the eval modules that import
+    this one must not pull it in."""
+    try:
+        from PIL import Image
+    except ImportError:  # pragma: no cover
+        raise RuntimeError("PIL not available for image decoding") from None
+    return Image
 
 
 _NATIVE = None  # tri-state: None = unprobed, False = unavailable
@@ -63,8 +69,7 @@ def load_image(path: str, height: int, width: int) -> np.ndarray:
             return native.load_resized(path, height, width)
         except ValueError:
             pass  # non-8-bit/interlaced PNG: fall through to PIL
-    if Image is None:  # pragma: no cover
-        raise RuntimeError("PIL not available for image decoding")
+    Image = _pil()
     with Image.open(path) as im:
         im = im.convert("RGB").resize((width, height), Image.BILINEAR)
         arr = np.asarray(im, np.float32)
@@ -91,12 +96,22 @@ def load_image_u8(path: str, height: int, width: int) -> np.ndarray:
             return native.load_resized_u8(path, height, width)
         except ValueError:
             pass
-    if Image is None:  # pragma: no cover
-        raise RuntimeError("PIL not available for image decoding")
+    Image = _pil()
     with Image.open(path) as im:
         return np.asarray(
             im.convert("RGB").resize((width, height), Image.BILINEAR), np.uint8
         )
+
+
+def load_images_u8(paths: Sequence[str], height: int, width: int,
+                   num_workers: int = 8) -> np.ndarray:
+    """``load_image_u8`` of every path, stacked to (N, height, width, 3):
+    decoded on a thread pool (the native decoder and Pillow release the
+    interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(num_workers) as ex:
+        return np.stack(list(ex.map(lambda p: load_image_u8(p, height, width), paths)))
 
 
 def _image_size(path: str) -> Tuple[int, int]:
@@ -107,9 +122,7 @@ def _image_size(path: str) -> Tuple[int, int]:
     with open(path, "rb") as f:
         head = f.read(24)
     if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
-        if Image is None:  # pragma: no cover
-            raise ValueError(f"{path}: not a PNG, and PIL is not available")
-        with Image.open(path) as im:
+        with _pil().open(path) as im:
             return im.size
     return struct.unpack(">II", head[16:24])
 
@@ -510,6 +523,8 @@ class KittiOdometrySequence:
         pose_path = os.path.join(root, "poses", sequence + ".txt")
         self.gt_poses = None
         if os.path.isfile(pose_path):
+            from depthvo_tpu_torch.eval.odometry import read_kitti_poses
+
             self.gt_poses = read_kitti_poses(pose_path)
 
     def __len__(self) -> int:
@@ -526,16 +541,7 @@ class KittiOdometrySequence:
         formed on-device, so each frame crosses the host->device link
         once as uint8 instead of twice as float32 (8x fewer bytes than
         ``pair_iterator``)."""
-        from concurrent.futures import ThreadPoolExecutor
-
-        with ThreadPoolExecutor(num_workers) as ex:
-            frames = list(
-                ex.map(
-                    lambda p: load_image_u8(p, self.height, self.width),
-                    self.frame_paths,
-                )
-            )
-        return np.stack(frames)
+        return load_images_u8(self.frame_paths, self.height, self.width, num_workers)
 
     def pair_iterator(self, batch_size: int = 8) -> Iterator[np.ndarray]:
         """Yield batches of consecutive-frame pairs (B, H, W, 6)."""
@@ -549,20 +555,3 @@ class KittiOdometrySequence:
                 buf = []
         if buf:
             yield np.stack(buf)
-
-
-def read_kitti_poses(path: str) -> np.ndarray:
-    """KITTI odometry pose file (12 floats per row, the devkit /
-    ground-truth format) -> (N, 4, 4) cam-to-world transforms (the port's
-    copy of ``depthvo_tpu/eval/odometry.py::read_kitti_poses``)."""
-    raw = np.loadtxt(path, dtype=np.float64)
-    if raw.ndim == 1:
-        raw = raw[None]
-    if raw.shape[1] != 12:
-        raise ValueError(
-            f"{path}: expected 12 values per row (KITTI pose format), "
-            f"got {raw.shape[1]}"
-        )
-    raw = raw.reshape(-1, 3, 4)
-    bottom = np.tile(np.array([[0.0, 0.0, 0.0, 1.0]]), (raw.shape[0], 1, 1))
-    return np.concatenate([raw, bottom], axis=1)

@@ -7,13 +7,26 @@ nearest-upsample + conv decoder with skip connections that predicts
 inverse depth ``max_disp * sigmoid(x) + min_disp`` (in float32) at the
 last ``num_scales`` resolutions, finest last.
 
-Finest stage: the reference's default ``s2d_finest=True`` is an exact
-space-to-depth rewrite of the standard finest stage for the TPU's matrix
-unit, with the same parameters and the same function. The port always
-runs the standard stage, which is therefore what ``s2d_finest=True``
-computes here too. ``fast_final_upsample``, ``subpixel_head`` and
-``remat`` (the reference's rematerialised stages, the same function with
-less memory) are not ported yet and raise ``NotImplementedError``.
+Finest stage, one of four modes (at most one of the last three):
+
+* standard: ``UpConv_4``, ``ConvBlock_5`` and a disp head at full
+  resolution;
+* ``s2d_finest`` (the reference's default): an exact space-to-depth
+  rewrite of the standard stage for the TPU's matrix unit, with the same
+  parameters and the same function. The port runs the standard stage,
+  which is therefore what ``s2d_finest=True`` computes here too;
+* ``subpixel_head``: no full-resolution convs; a 3x3 conv to 4 channels
+  at 1/2 resolution, the bounded sigmoid, then depth-to-space;
+* ``fast_final_upsample``: no full-resolution convs; the 1/2-resolution
+  disparity (which this mode always predicts) resized bilinearly.
+
+Submodules carry flax's auto-names, so a disp head is ``Conv_k`` with k
+counting the heads made before it (the subpixel conv is the one after
+the coarse heads) and reference checkpoints of every mode load as they
+are. ``remat`` runs the stem, each ``ResNetStage``, ``UpConv`` and
+decoder ``ConvBlock`` under ``layers.remat`` when training: the same
+values with less memory held for the backward, and the same parameter
+names.
 
 ``compute_dtype="bfloat16"`` runs the convolutions under
 ``torch.autocast``; the parameters stay float32 and the disp heads'
@@ -22,7 +35,7 @@ sigmoid runs in float32, as in the reference.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 from torch import nn
@@ -32,7 +45,10 @@ from depthvo_tpu_torch.models.layers import (
     ConvBlock,
     ResNetStage,
     UpConv,
+    depth_to_space2,
     max_pool_same,
+    remat,
+    resize_bilinear,
 )
 
 
@@ -65,16 +81,21 @@ class DepthNet(nn.Module):
         fast_final_upsample: bool = False,
         subpixel_head: bool = False,
         remat: bool = False,
+        s2d_finest: bool = False,
     ):
         super().__init__()
-        if fast_final_upsample or subpixel_head or remat:
-            raise NotImplementedError(
-                "fast_final_upsample, subpixel_head and remat are not ported yet"
+        if sum((fast_final_upsample, subpixel_head, s2d_finest)) > 1:
+            raise ValueError(
+                "fast_final_upsample, subpixel_head and s2d_finest are "
+                "mutually exclusive finest-stage modes"
             )
         self.num_scales = num_scales
         self.max_disp = max_disp
         self.min_disp = min_disp
         self.compute_dtype = compute_dtype
+        self.fast_final_upsample = fast_final_upsample
+        self.subpixel_head = subpixel_head
+        self.remat = remat
         self.num_stages = len(stage_planes)
         self.num_up = len(decoder_features)
 
@@ -88,7 +109,16 @@ class DepthNet(nn.Module):
             )
             in_ch = 4 * planes
             skip_ch.append(in_ch)
+        # The decoder stage -> its disp head's name, in flax's order.
+        self.heads: Dict[int, str] = {}
+        last = self.num_up - 1
         for i, feats in enumerate(decoder_features):
+            if i == last and subpixel_head:
+                self.heads[i] = f"Conv_{len(self.heads)}"
+                self.add_module(self.heads[i], Conv(in_ch, 4, 3))
+                break
+            if i == last and fast_final_upsample:
+                break
             self.add_module(f"UpConv_{i}", UpConv(in_ch, feats))
             skip_idx = len(skip_ch) - 2 - i
             cat_ch = feats + (skip_ch[skip_idx] if skip_idx >= 0 else 0)
@@ -96,33 +126,50 @@ class DepthNet(nn.Module):
                 f"ConvBlock_{i + 1}", ConvBlock(cat_ch, feats, 3, 1, use_bn=False)
             )
             scale_idx = i - (self.num_up - num_scales)
-            if scale_idx >= 0:
-                self.add_module(f"Conv_{scale_idx}", Conv(feats, 1, 3))
+            # fast_final_upsample needs the 1/2-resolution disp to resize.
+            if scale_idx >= 0 or (fast_final_upsample and i == last - 1):
+                self.heads[i] = f"Conv_{len(self.heads)}"
+                self.add_module(self.heads[i], Conv(feats, 1, 3))
             in_ch = feats
+
+    def _disp(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Stage ``i``'s head: ``max_disp * sigmoid + min_disp`` in float32,
+        NHWC."""
+        raw = getattr(self, self.heads[i])(x)
+        return (self.max_disp * torch.sigmoid(raw.float()) + self.min_disp).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) in [-1, 1] -> inverse-depth maps
         [(B, H/8, W/8, 1), ..., (B, H, W, 1)], finest last, float32."""
         x = x.permute(0, 3, 1, 2).float()
+        if self.remat and self.training and torch.is_grad_enabled():
+            run = remat
+        else:
+            def run(module, t):
+                return module(t)
         disps = []
+        last = self.num_up - 1
         with autocast_for(x, self.compute_dtype):
-            x = self.ConvBlock_0(x)
+            x = run(self.ConvBlock_0, x)
             skips = [x]
             x = max_pool_same(x, 3, 2)
             for i in range(self.num_stages):
-                x = getattr(self, f"ResNetStage_{i}")(x)
+                x = run(getattr(self, f"ResNetStage_{i}"), x)
                 skips.append(x)
             x = skips[-1]
             for i in range(self.num_up):
-                x = getattr(self, f"UpConv_{i}")(x)
+                if i == last and self.subpixel_head:
+                    disps.append(depth_to_space2(self._disp(i, x)))
+                    break
+                if i == last and self.fast_final_upsample:
+                    prev = disps[-1]
+                    disps.append(resize_bilinear(prev, 2 * prev.shape[1], 2 * prev.shape[2]))
+                    break
+                x = run(getattr(self, f"UpConv_{i}"), x)
                 skip_idx = len(skips) - 2 - i
                 if skip_idx >= 0:
                     x = torch.cat([x, skips[skip_idx].to(x.dtype)], dim=1)
-                x = getattr(self, f"ConvBlock_{i + 1}")(x)
-                scale_idx = i - (self.num_up - self.num_scales)
-                if scale_idx >= 0:
-                    raw = getattr(self, f"Conv_{scale_idx}")(x)
-                    disp = self.max_disp * torch.sigmoid(raw.float()) + self.min_disp
-                    disps.append(disp.permute(0, 2, 3, 1))
+                x = run(getattr(self, f"ConvBlock_{i + 1}"), x)
+                if i in self.heads:
+                    disps.append(self._disp(i, x))
         return disps
-

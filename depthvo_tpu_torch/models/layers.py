@@ -23,9 +23,15 @@ flax differ, each pinned by a parity test (tests/test_torch_models.py):
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
+
+_RECOMPUTE = threading.local()  # .on: inside the recompute of a remat region
 
 
 def same_pads(size: int, kernel: int, stride: int, dilation: int = 1):
@@ -81,6 +87,12 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if getattr(_RECOMPUTE, "on", False):
+            # The backward's recompute of a remat region (:func:`remat`):
+            # the same op on the batch's statistics, but the running
+            # averages were moved by the forward, so it moves copies.
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
         # torch's op moves a copy (autograd keeps it, so it is not
         # touched again): var_u = k prev + m var n/(n-1), k = 1 - m. Then
         # r var_u + (1 - r) k prev = k prev + m var with r = (n-1)/n.
@@ -149,6 +161,40 @@ class ResNetStage(nn.Module):
         for block in self.children():
             x = block(x)
         return x
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+def remat(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` keeping none of its inner activations for the
+    backward, which runs the module again to get them (flax ``nn.remat``).
+
+    The recompute sees the forward's autocast state and no random state
+    (the networks draw none), and its BatchNorm layers write no running
+    average: flax discards the recompute's statistics too, so remat
+    changes no value, only what is held between forward and backward."""
+    return torch.utils.checkpoint.checkpoint(
+        module, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+
+
+def depth_to_space2(x: torch.Tensor) -> torch.Tensor:
+    """(B, H/2, W/2, 4C) -> (B, H, W, C), input channel (2a + b) * C + c
+    going to row offset a and column offset b (the reference's
+    ``layers.depth_to_space2``; for C = 1 this is ``F.pixel_shuffle``'s
+    order)."""
+    b, h2, w2, c4 = x.shape
+    c = c4 // 4
+    x = x.reshape(b, h2, w2, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, 2 * h2, 2 * w2, c)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

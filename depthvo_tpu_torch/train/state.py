@@ -76,6 +76,9 @@ def build_models(config: ExperimentConfig) -> Models:
         fast_final_upsample=mc.fast_final_upsample,
         subpixel_head=mc.subpixel_head,
         remat=mc.remat,
+        # The standard stage's function; it still counts as a finest-stage
+        # mode for the heads' mutual exclusion, as in the reference.
+        s2d_finest=mc.s2d_finest,
         decoder_features=tuple(mc.decoder_features),
     )
     odom = OdomNet(compute_dtype=dt).eval() if "odom" in nets else None

@@ -13,7 +13,7 @@ package, and the three repairs that came with them.
   parameters and solver tensors within 1e-6 relative (they are equal on
   the CPU: the same arithmetic in the same order).
 * Snapshots on SIGHUP and on SIGINT's stop (as tests/test_train.py).
-* The repairs: ``remat`` raises, ``fit`` has the reference's signature,
+* The repairs: ``remat`` is honoured, ``fit`` has the reference's signature,
   and ``resolve_device("cpu")`` makes the first MKL call on one element.
 """
 
@@ -21,6 +21,7 @@ import copy
 import dataclasses
 import inspect
 import os
+import shutil
 import signal
 
 import jax
@@ -48,6 +49,14 @@ torch.exp(torch.zeros(1))  # MKL's first call on one thread (test_torch_models.p
 RTOL = 2e-5
 RESUME_RTOL = 1e-6
 CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, deleted at teardown: the checkpoints written
+    here are about 150 MB each, and pytest keeps its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _to_flax(models):
@@ -100,7 +109,8 @@ def ref_dir(tmp_path_factory):
     jckpt.save(mgr, state)
     mgr.wait_until_finished()
     jbase.save_json(cfg, os.path.join(d, "config.json"))
-    return d, params, stats
+    yield d, params, stats
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def _rel(got, ref):
@@ -384,10 +394,28 @@ def test_fit_sighup_snapshots_and_continues(tmp_path):
 
 
 def test_remat_raises_until_it_is_ported():
+    """``model.remat`` was once accepted and ignored, then raised until it
+    was ported. Now it builds the same networks (the same names,
+    so checkpoints move between the modes) and is honoured: a train-mode
+    forward keeps fewer tensors for the backward. Its values are held bit
+    for bit against ``remat=False`` in tests/test_torch_depth_heads.py."""
     cfg = tconfigs.tiny_test()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True))
-    with pytest.raises(NotImplementedError, match="remat"):
-        tstate.build_models(cfg)
+    models = tstate.build_models(cfg)
+    assert models.depth.remat
+    plain = tstate.build_models(tconfigs.tiny_test())
+    for name in tstate.Models._fields:
+        assert list(getattr(models, name).state_dict()) == list(getattr(plain, name).state_dict())
+    x = torch.zeros(2, 32, 96, 3)
+    held = []
+    for net in (plain.depth, models.depth):
+        net.train()
+        n = [0]
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: n.__setitem__(0, n[0] + 1) or t, lambda t: t):
+            net(x)
+        held.append(n[0])
+    assert held[1] < held[0], held
 
 
 def test_fit_has_the_reference_signature_then_device():

@@ -12,6 +12,7 @@ builds). Everything compared here is exact.
 """
 
 import os
+import shutil
 import threading
 import time
 
@@ -38,6 +39,14 @@ P2 = "7.2e+02 0.0 6.0e+02 4.5e+01 0.0 7.2e+02 1.8e+02 -3.0e-01 0.0 0.0 1.0 4.9e-
 P3 = "7.2e+02 0.0 6.0e+02 -3.4e+02 0.0 7.2e+02 1.8e+02 2.2e+00 0.0 0.0 1.0 2.7e-03"
 
 
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, deleted at teardown: the checkpoints written
+    here are about 150 MB each, and pytest keeps its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def _write_png(path, h=40, w=128, seed=0):
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -61,7 +70,8 @@ def raw_tree(tmp_path_factory):
             f.write(f"P_rect_02: {P2}\n")
             if d == 0:
                 f.write(f"S_rect_02: 1.280000e+02 4.000000e+01\nP_rect_03: {P3}\n")
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +92,8 @@ def odom_tree(tmp_path_factory):
             T = np.eye(4)[:3, :4].copy()
             T[2, 3] = 0.8 * i
             f.write(" ".join(str(x) for x in T.reshape(-1)) + "\n")
-    return root, seq
+    yield root, seq
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _use_native(monkeypatch):

@@ -158,9 +158,13 @@ def test_from_jax_consumes_every_leaf(nets):
 
 
 def test_unported_finest_modes_raise():
+    """Both heads are ported (tests/test_torch_depth_heads.py holds them
+    against the reference); what raises now is the reference's own
+    refusal of two finest-stage modes at once."""
     for kw in ({"fast_final_upsample": True}, {"subpixel_head": True}):
-        with pytest.raises(NotImplementedError):
-            DepthNet(**kw)
+        DepthNet(**kw)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            DepthNet(s2d_finest=True, **kw)
 
 
 @pytest.mark.parametrize("autocast", [False, True])

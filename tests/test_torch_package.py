@@ -41,3 +41,22 @@ def test_no_source_of_the_port_imports_the_jax_package():
     for path in files:
         bad = set(_imported_roots(path)) & _BANNED
         assert not bad, f"{path.relative_to(_REPO)} imports {sorted(bad)}"
+
+
+def test_eval_modules_import_neither_pil_nor_matplotlib():
+    """The card's machine has neither: the eval path must import them only
+    where a call needs them (the odometry figure, ``infer --save-png``,
+    the PIL decode fallback)."""
+    code = (
+        "import sys\n"
+        "import depthvo_tpu_torch.eval, depthvo_tpu_torch.eval.runner\n"
+        "import depthvo_tpu_torch.eval.resize, depthvo_tpu_torch.data.velodyne\n"
+        "import depthvo_tpu_torch.data.eigen, depthvo_tpu_torch.cli\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'matplotlib'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(_REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr

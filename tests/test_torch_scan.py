@@ -24,6 +24,7 @@ the eager step and the JAX package on the CPU.
 
 import dataclasses
 import inspect
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +49,14 @@ torch.exp(torch.zeros(1))  # MKL's first call on one thread (test_torch_models.p
 
 CPU = torch.device("cpu")
 MOTION_BIAS = np.array([2.0, -1.0, -30.0, 0.2, -0.3, 0.1], np.float32)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, deleted at teardown: the checkpoints written
+    here are about 150 MB each, and pytest keeps its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _cfg(**optim):
