@@ -150,7 +150,42 @@ with a nonzero exit code:
              BatchNorm statistic, solver tensor and metric bit for bit;
              the bfloat16 batch-4 train step's peak allocated bytes with
              and without ``remat``.
-9. serve   - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
+9. int8_serving - w8a8 serving and the serving export (A.6) at 608x160:
+             (1) the int8 convolution (``ops/int8_conv.py``: an int8
+             im2col and ``torch._int_mm``, cuBLASLt's int8 GEMM; a library
+             call, not a TPU kernel) at every distinct quantized conv shape
+             of the depth net at batch 16 against its float64 plain version
+             bit for bit in int32, with the device time of both beside
+             cuDNN's bfloat16 convolution of the shape and the bound (int8
+             operands and the int32 output once at 3.35 TB/s, 2*M*N*K at
+             1979 int8 TOP/s); (2) the int8 and the bfloat16 depth sweep
+             (``predict_depths``, 128 frames, batch 16) in turns: frames/s,
+             the int8 sweep's ``_int_mm`` calls, peak allocated bytes and
+             traced device busy share, ``uncalibrate`` / ``set_quant`` giving
+             back the same depth bit for bit; (3) float32 (TF32 off)
+             calibration card vs CPU: every ``a_max`` <= 2e-5 relative, the
+             int8 depth with the CPU's scales on the card <= 1e-5 relative
+             (the int8 path is the same bits on both devices; the float
+             disparity heads are not) and within the reference's int8 bar
+             (rtol 2e-3 / atol 2e-3), with each device's own scales
+             recorded; (4) ``export_depth`` of a float32 and an int8 model on
+             the card, each loaded on the card and checked on the CPU and
+             the card at export: batches 1, 4 and 16 through one symbolic
+             artifact against ``DepthVO.depth`` (<= 1e-5 relative float32,
+             the int8 bar int8), bytes, export and load seconds, batch-16
+             latency; an artifact exported on the CPU served on the card
+             (<= 1e-5); (5) ``cli eval-depth --int8`` (quant and split.int8
+             declared, ``_int_mm`` called) and ``cli infer --int8`` (its
+             files equal the API calibrated on the same frames) on phase
+             eval's tree, which this phase then deletes.
+10. caffe  - the Caffe weight tools (A.7) at 608x160: ``export-caffemodel``
+             of each net of a checkpoint, ``import-caffemodel`` of the depth
+             file into a fresh checkpoint (every depth tensor equal, and
+             ``DepthVO.depth`` on the card bit for bit, float32, TF32 off);
+             ``net-info`` of a train graph and ``convert`` (solver + graph +
+             the three files) exit 0, with finite depth from the converted
+             checkpoint.
+11. serve  - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
              uint8 batch and pose of its frame pairs; shapes, finiteness
              and latency.
 
@@ -1733,9 +1768,12 @@ def phase_eval(variant: str, dev, smi: str):
     out["infer"] = {"frames": INFER_FRAMES, "frames_per_s_steady": float(fps.group(1)),
                     "vs_depth_vo_max_rel": infer_rel}
     del model
-    tmp.cleanup()
     out["a5"] = _a5_checks(cfg, dev, frames[:2])
     emit(out)
+    # The tree stays for phase int8_serving, which deletes it.
+    return {"tmp": tmp, "root": root, "split": split, "ck32": c32, "images": images,
+            "infer_names": names_in[:INFER_FRAMES], "frames": frames,
+            "sweep_frames_per_s": out["eval_depth_bf16"]["frames_per_s_sweep"]}
 
 
 def _with_model(cfg, **kw):
@@ -1863,6 +1901,420 @@ def _a5_checks(cfg, dev, images) -> dict:
     return out
 
 
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate, NVIDIA data sheet
+INT8_RTOL = INT8_ATOL = 2e-3  # the reference's own int8 bar (tests/test_serving.py)
+A_MAX_RTOL = 2e-5
+INT8_SAME_SCALES_RTOL = 1e-5
+ARTIFACT_RTOL = 1e-5
+INT8_BATCH = 16
+INT8_SWEEP_FRAMES = 128
+
+
+def _quant_conv_shapes(model, images) -> dict:
+    """The distinct quantized conv shapes of one int8 depth forward:
+    (C, H, W, O, kernel, stride) -> the layers that have it."""
+    from depthvo_tpu_torch.models.layers import QuantConv
+
+    shapes: dict = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, name=name: shapes.setdefault(
+            (a[0].shape[1], a[0].shape[2], a[0].shape[3], m.out_channels,
+             m.kernel_size[0], m.stride[0]), []).append(name))
+        for name, m in model.models.depth.named_modules() if isinstance(m, QuantConv)]
+    try:
+        model.depth(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def _int8_conv_rows(shapes: dict, dev) -> list:
+    """Each shape at batch 16 on random int8 codes: the ``_int_mm`` path
+    against its float64 plain version bit for bit in int32, and the device
+    time of both beside cuDNN's bfloat16 convolution of the same shape and
+    the bound (int8 operands and the int32 output once; 2*M*N*K int8
+    operations)."""
+    import torch
+    import torch.nn.functional as F
+
+    from depthvo_tpu_torch.models.layers import same_pads
+    from depthvo_tpu_torch.ops import int8_conv
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for (c, h, w, o, k, st), layers in sorted(shapes.items()):
+        x = torch.randint(-127, 128, (INT8_BATCH, c, h, w), dtype=torch.int8, device=dev,
+                          generator=gen)
+        wq = torch.randint(-127, 128, (o, c, k, k), dtype=torch.int8, device=dev, generator=gen)
+        ph, pw = same_pads(h, k, st), same_pads(w, k, st)
+        pads = (pw[0], pw[1], ph[0], ph[1])
+        w_mat = int8_conv.weight_matrix(wq)
+        got = int8_conv.int8_conv2d(x, w_mat, k, st, 1, pads)
+        want = int8_conv.int8_conv2d_plain(x, wq, st, 1, pads)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {(c, h, w, o, k, st)}: the _int_mm path differs "
+                                 f"from its plain version by {int((got - want).abs().max())}")
+        xb, wb = x.to(torch.bfloat16), wq.to(torch.bfloat16)
+        ms = device_ms(lambda: int8_conv.int8_conv2d(x, w_mat, k, st, 1, pads))
+        plain = device_ms(lambda: int8_conv.int8_conv2d_plain(x, wq, st, 1, pads), runs=5,
+                          per_run=2)
+        cudnn = device_ms(lambda: F.conv2d(F.pad(xb, pads), wb, None, st))
+        m_rows, kk = got[:, 0].numel(), c * k * k
+        nbytes = x.numel() + wq.numel() + 4 * got.numel()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * m_rows * o * kk / INT8_OPS_PER_S * 1e3
+        rows.append({"shape": {"C": c, "H": h, "W": w, "O": o, "kernel": k, "stride": st},
+                     "layers": len(layers), "bit_equal": True, "gemm_mnk": [m_rows, o, kk],
+                     "int8_us": ms * 1e3, "plain_f64_us": plain * 1e3,
+                     "cudnn_bf16_us": cudnn * 1e3, "bound_us": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        del x, wq, w_mat, got, want, xb, wb
+    return rows
+
+
+def phase_int8_serving(variant: str, dev, smi: str, fixtures: dict):
+    """w8a8 serving and the serving export at the variant's width (A.6)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from depthvo_tpu_torch import DepthVO, cli, configs
+    from depthvo_tpu_torch.data.kitti import load_images_u8
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.eval import runner
+    from depthvo_tpu_torch.io import serving
+    from depthvo_tpu_torch.ops import int8_conv
+
+    cfg = getattr(configs, variant)(batch_size=INT8_BATCH)
+    cfg32 = _f32_config(cfg)
+    h, w = cfg.model.height, cfg.model.width
+    out = {"phase": "int8_serving", "config": variant, "nvidia_smi": smi, "hw": [h, w],
+           "batch": INT8_BATCH}
+    half = INT8_SWEEP_FRAMES // 2
+    scenes = SyntheticScenes(cfg, seed=61, num_scenes=half, u8=True).fixed_batch(half)
+    frames = np.concatenate([scenes["image_t"], scenes["image_s"]])
+
+    # (1) the int8 conv at every quantized shape of the depth net, batch 16.
+    model = DepthVO.from_random(cfg, seed=0, device=dev).calibrate_int8(frames[:32])
+    shapes = _quant_conv_shapes(model, frames[:INT8_BATCH])
+    rows = _int8_conv_rows(shapes, dev)
+    out["int8_conv"] = {
+        "route": "library (cuBLASLt int8 GEMM over an im2col), not a TPU kernel",
+        "source": "depthvo_tpu_torch/ops/int8_conv.py", "distinct_shapes": len(rows),
+        "layers": sum(r["layers"] for r in rows), "all_bit_equal": True,
+        "int8_us_sum": sum(r["int8_us"] * r["layers"] for r in rows),
+        "cudnn_bf16_us_sum": sum(r["cudnn_bf16_us"] * r["layers"] for r in rows),
+        "bound_us_sum": sum(r["bound_us"] * r["layers"] for r in rows),
+        "rows": rows}
+
+    # (2) throughput: the int8 and the bfloat16 sweep of the same frames,
+    # in turns, batch 16; busy share and peak of the int8 sweep.
+    def sweep():
+        t0 = time.perf_counter()
+        d = runner.predict_depths(model, frames, INT8_BATCH)
+        return d, time.perf_counter() - t0
+
+    runner.predict_depths(model, frames[:INT8_BATCH], INT8_BATCH)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    int8_conv.reset_calls()
+    q_depth, q_s = sweep()
+    peak = torch.cuda.max_memory_allocated()
+    calls = int8_conv.CALLS
+    if calls < len(model.models.depth.quant_convs()) * INT8_SWEEP_FRAMES // INT8_BATCH:
+        raise AssertionError(f"the int8 sweep made {calls} _int_mm calls")
+    if not (np.isfinite(q_depth).all() and q_depth.shape == (INT8_SWEEP_FRAMES, h, w)):
+        raise AssertionError(f"int8 sweep: shape {q_depth.shape}, finite "
+                             f"{np.isfinite(q_depth).all()}")
+    traced = _traced_call(lambda: runner.predict_depths(model, frames, INT8_BATCH),
+                          INT8_SWEEP_FRAMES // INT8_BATCH)
+    # In turns: bfloat16, int8 again (the same scales seated), bfloat16.
+    quant = model.quant
+    model.uncalibrate()
+    runner.predict_depths(model, frames[:INT8_BATCH], INT8_BATCH)
+    f_depth, f_s = sweep()
+    model.set_quant(quant)
+    q_depth2, q_s2 = sweep()
+    model.uncalibrate()
+    f_depth2, f_s2 = sweep()
+    if not np.array_equal(f_depth2, f_depth) or not np.array_equal(q_depth2, q_depth):
+        raise AssertionError("uncalibrate / set_quant do not give back the same depth")
+    rel = np.abs(q_depth - f_depth) / f_depth
+    out["sweep"] = {
+        "frames": INT8_SWEEP_FRAMES, "int8_frames_per_s": [INT8_SWEEP_FRAMES / q_s,
+                                                           INT8_SWEEP_FRAMES / q_s2],
+        "bf16_frames_per_s": [INT8_SWEEP_FRAMES / f_s, INT8_SWEEP_FRAMES / f_s2],
+        "bf16_frames_per_s_phase_eval": fixtures["sweep_frames_per_s"],
+        "int8_peak_allocated_bytes": peak, "live_before_bytes": live,
+        "int8_peak_above_live_bytes": peak - live, "int_mm_calls": calls,
+        "int8_traced": {k: traced[k] for k in ("kernels_per_step", "device_busy_ms_per_step",
+                                               "traced_wall_ms_per_step", "device_busy_share")},
+        "uncalibrate_bit_for_bit": True,
+        "int8_vs_bf16_depth_rel_median": float(np.median(rel)),
+        "int8_vs_bf16_depth_rel_p99": float(np.quantile(rel, 0.99))}
+    del model
+
+    # (3) calibration and the int8 depth, card against CPU (float32, TF32
+    # off): the a_max trees (<= 2e-5 relative: float convolutions in
+    # another order), then the int8 depth with the CPU's scales seated on
+    # the card. The int8 path gives the same bits on both devices (the
+    # scales are made on the CPU, BatchNorm and the normalisation divide
+    # as the CPU does), so only the float disparity heads differ:
+    # <= 1e-5 relative, and within the reference's int8 bar. With each
+    # device's own scales a code flips where an activation sits on a
+    # rounding edge and the flips compound: recorded.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    calib = frames[:8]
+    probe = frames[8:12]
+    card = DepthVO.from_random(cfg32, seed=0, device=dev).calibrate_int8(calib)
+    cpu = DepthVO.from_random(cfg32, seed=0, device="cpu").calibrate_int8(calib)
+    qa, qc = _flat_quant(card.quant), _flat_quant(cpu.quant)
+    a_rel = max(abs(qa[k] - qc[k]) / qc[k] for k in qc)
+    if set(qa) != set(qc) or not a_rel <= A_MAX_RTOL:
+        raise AssertionError(f"a_max card vs CPU: {a_rel}")
+    d_cpu = cpu.depth(probe)
+    d_own = card.depth(probe)
+    card.set_quant(cpu.quant)
+    d_card = card.depth(probe)
+    same_rel = float(np.max(np.abs(d_card - d_cpu) / d_cpu))
+    if not (same_rel <= INT8_SAME_SCALES_RTOL
+            and np.allclose(d_card, d_cpu, rtol=INT8_RTOL, atol=INT8_ATOL)):
+        raise AssertionError(f"int8 depth card vs CPU, the same scales: {same_rel}")
+    own = np.abs(d_own - d_cpu) / d_cpu
+    out["card_vs_cpu"] = {
+        "a_max_max_rel": a_rel, "convs": len(qa),
+        "int8_depth_same_scales_max_rel": same_rel,
+        "int8_depth_same_scales_bit_equal_share": float(np.mean(d_card == d_cpu)),
+        "int8_depth_own_scales_max_rel": float(own.max()),
+        "int8_depth_own_scales_median_rel": float(np.median(own)),
+        "tolerance": {"a_max_rel": A_MAX_RTOL, "same_scales_rel": INT8_SAME_SCALES_RTOL,
+                      "rtol": INT8_RTOL, "atol": INT8_ATOL}}
+    del cpu
+
+    # (4) export-serving: the float32 and the int8 artifact written and
+    # loaded on the card; batches 1, 4 and 16 through one symbolic
+    # artifact against DepthVO.depth; an artifact exported on the CPU
+    # served on the card.
+    tmp = fixtures["tmp"].name
+    f32 = DepthVO.from_random(cfg32, seed=0, device=dev)
+    exports = {}
+    for name, mdl in (("f32", f32), ("int8", card)):
+        path = os.path.join(tmp, f"{name}.depthvo.pt2")
+        t0 = time.perf_counter()
+        side = serving.export_depth(mdl, path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = serving.load(path)
+        load_s = time.perf_counter() - t0
+        errs = {}
+        for b in (1, 4, 16):
+            x = frames[:b]
+            got, want = served(x), mdl.depth(x)
+            errs[b] = float(np.max(np.abs(got - want) / want))
+            ok = (np.allclose(got, want, rtol=INT8_RTOL, atol=INT8_ATOL) if name == "int8"
+                  else errs[b] <= ARTIFACT_RTOL)
+            if got.shape != (b, h, w) or not ok:
+                raise AssertionError(f"{name} artifact at batch {b}: {got.shape}, {errs[b]}")
+        lat = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            served(frames[:INT8_BATCH])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        if side["int8"] != (name == "int8") or side["checked_on"] != ["cpu", "cuda"]:
+            raise AssertionError(f"{name} sidecar {side}")
+        exports[name] = {"artifact_bytes": side["artifact_bytes"], "export_seconds": export_s,
+                         "load_seconds": load_s, "max_rel_by_batch": errs,
+                         "latency_ms_batch16_median": statistics.median(lat)}
+    path = os.path.join(tmp, "cpu.depthvo.pt2")
+    t0 = time.perf_counter()
+    side = serving.export_depth(DepthVO.from_random(cfg32, seed=0, device="cpu"), path,
+                                platforms=("cpu",))
+    export_s = time.perf_counter() - t0
+    got, want = serving.load(path, device="cuda")(frames[:4]), f32.depth(frames[:4])
+    cpu_rel = float(np.max(np.abs(got - want) / want))
+    if not cpu_rel <= ARTIFACT_RTOL:
+        raise AssertionError(f"CPU-exported artifact on the card: {cpu_rel}")
+    exports["exported_on_cpu_served_on_card"] = {"max_rel": cpu_rel,
+                                                 "export_seconds": export_s,
+                                                 "artifact_bytes": side["artifact_bytes"]}
+    out["export_serving"] = exports
+    del f32, card
+
+    # (5) cli eval-depth --int8 (float32, TF32 off) and infer --int8 on
+    # phase eval's tree.
+    common = ["eval-depth", "--kitti-root", fixtures["root"], "--split-file",
+              fixtures["split"], "--checkpoint-dir", fixtures["ck32"], "--device", "cuda"]
+    int8_conv.reset_calls()
+    table, table_s = _cli_json(common + ["--int8"])
+    if (table["quant"] != "int8" or table["split"].get("int8") is not True
+            or int8_conv.CALLS == 0
+            or not all(math.isfinite(table[k]) for k in ("abs_rel", "rmse", "a1"))):
+        raise AssertionError(f"eval-depth --int8: {table}")
+    torch.backends.cudnn.allow_tf32 = True
+    names = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
+    images = fixtures["images"]
+    infer_out = os.path.join(tmp, "infer_int8")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["infer", "--variant", variant, "--images", images, "--output-dir",
+                       infer_out, "--device", "cuda", "--int8"])
+    text = printed.getvalue()
+    if rc != 0 or "int8: calibrated" not in text:
+        raise AssertionError(f"cli infer --int8: rc {rc}, {text}")
+    fr = load_images_u8([os.path.join(images, n) for n in fixtures["infer_names"]], h, w)
+    model = DepthVO.from_random(cfg, seed=0, device=dev).calibrate_int8(fr)
+    padded = np.concatenate([fr, np.repeat(fr[-1:], (-len(fr)) % INT8_BATCH, 0)])
+    want = np.concatenate([model.depth(padded[i:i + INT8_BATCH])
+                           for i in range(0, len(padded), INT8_BATCH)])[:len(fr)]
+    got = np.stack([np.load(os.path.join(infer_out, os.path.splitext(n)[0] + "_depth.npy"))
+                    for n in fixtures["infer_names"]])
+    if not np.allclose(got, want, rtol=INT8_RTOL, atol=INT8_ATOL):
+        raise AssertionError(f"infer --int8 vs DepthVO.depth: {np.abs(got - want).max()}")
+    fps = re.search(r"\(([\d.]+) frames/s steady", text)
+    out["cli"] = {"eval_depth_int8": {k: table[k] for k in names}, "eval_depth_seconds": table_s,
+                  "infer_int8_frames_per_s_steady": float(fps.group(1)),
+                  "infer_int8_vs_depth_vo_max_rel": float(np.max(np.abs(got - want) / want))}
+    del model
+    fixtures["tmp"].cleanup()
+    emit(out)
+
+
+def _flat_quant(tree, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_quant(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = float(v)
+    return out
+
+
+CAFFE_TRAIN_NET = """
+name: "depth_odometry_feat_train"
+layer {
+  name: "data" type: "ImageData" top: "img_L" top: "img_R"
+  transform_param { scale: 1.0 mean_value: 104.0 mean_value: 117.0 mean_value: 123.0 }
+  image_data_param { source: "train_list.txt" batch_size: 4 new_height: 160 new_width: 608 }
+}
+layer { name: "conv1" type: "Convolution" bottom: "img_L" top: "conv1"
+        convolution_param { num_output: 32 kernel_size: 7 stride: 2 } }
+layer { name: "fc_pose" type: "InnerProduct" bottom: "conv1" top: "se3"
+        inner_product_param { num_output: 6 } }
+layer { name: "inverse_warp" type: "Python" bottom: "img_R" bottom: "se3" top: "warped_L" }
+layer { name: "stereo_photo_loss" type: "L1Loss" bottom: "warped_L" bottom: "img_L"
+        loss_weight: 1.0 }
+layer { name: "temporal_photo_loss" type: "L1Loss" bottom: "warped_L" bottom: "img_L"
+        loss_weight: 1.0 }
+layer { name: "feat_recon_loss" type: "L1Loss" bottom: "warped_feat" bottom: "feat_L"
+        loss_weight: 0.1 }
+layer { name: "smooth_loss" type: "SmoothnessLoss" bottom: "disp" loss_weight: 0.05 }
+"""
+CAFFE_SOLVER = """net: "train.prototxt"
+base_lr: 0.001
+lr_policy: "step"
+gamma: 0.5
+stepsize: 80000
+max_iter: 200000
+momentum: 0.9
+momentum2: 0.999
+type: "Adam"
+"""
+
+
+def phase_caffe(variant: str, dev, smi: str):
+    """The Caffe weight tools (A.7) at the variant's width, in a temporary
+    directory: ``export-caffemodel`` of each net of a checkpoint, then
+    ``import-caffemodel`` of the depth net's file into a fresh checkpoint:
+    its depth net equal to the source's tensor for tensor, and
+    ``DepthVO.depth`` of both on the card bit for bit (float32, TF32
+    off); ``net-info`` and ``convert`` (solver + train graph + the three
+    files) exit 0."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depthvo_tpu_torch import DepthVO, cli, configs
+    from depthvo_tpu_torch.configs import base as config_base
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.io import checkpoint as ckpt
+    from depthvo_tpu_torch.train import state as tstate
+
+    cfg32 = _f32_config(getattr(configs, variant)(batch_size=BATCH))
+    out = {"phase": "caffe", "config": variant, "nvidia_smi": smi}
+    tmp = tempfile.TemporaryDirectory(prefix="caffe-")
+    path = lambda *p: os.path.join(tmp.name, *p)  # noqa: E731
+    src = path("src")
+    ckpt.save(ckpt.make_manager(src), tstate.create_state(cfg32, torch.device("cpu"),
+                                                          torch.Generator().manual_seed(3)))
+    config_base.save_json(cfg32, os.path.join(src, "config.json"))
+
+    def run(argv) -> tuple[int, float, str]:
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(argv)
+        return rc, time.perf_counter() - t0, printed.getvalue()
+
+    files = {}
+    for net in ("depth", "odom", "feat"):
+        f = path(f"{net}.caffemodel")
+        rc, secs, text = run(["export-caffemodel", "--checkpoint-dir", src, "--net", net,
+                              "--output", f])
+        if rc != 0:
+            raise AssertionError(f"export-caffemodel --net {net}: rc {rc}, {text[-500:]}")
+        files[net] = {"bytes": os.path.getsize(f), "seconds": secs}
+    dst = path("dst")
+    rc, secs, text = run(["import-caffemodel", "--variant", variant, "--caffemodel",
+                          path("depth.caffemodel"), "--checkpoint-dir", dst])
+    if rc != 0:
+        raise AssertionError(f"import-caffemodel: rc {rc}, {text[-500:]}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = DepthVO.from_checkpoint(src, device=dev)
+    b = DepthVO.from_checkpoint(dst, cfg32, device=dev)
+    sa, sb = a.models.depth.state_dict(), b.models.depth.state_dict()
+    unequal = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    images = SyntheticScenes(cfg32, seed=71, num_scenes=BATCH, u8=True).fixed_batch(
+        BATCH)["image_t"]
+    da, db = a.depth(images), b.depth(images)
+    if unequal or set(sa) != set(sb) or not np.array_equal(da, db):
+        raise AssertionError(f"caffemodel round trip: {len(unequal)} tensors differ "
+                             f"({unequal[:4]}), depth max diff {np.abs(da - db).max()}")
+    torch.backends.cudnn.allow_tf32 = True
+    out["round_trip"] = {"files": files, "import_seconds": secs,
+                         "depth_tensors_equal": len(sa), "depth_bit_equal": True,
+                         "depth_shape": list(da.shape)}
+    with open(path("train.prototxt"), "w") as f:
+        f.write(CAFFE_TRAIN_NET)
+    with open(path("solver.prototxt"), "w") as f:
+        f.write(CAFFE_SOLVER)
+    rc_info, _, info = run(["net-info", path("train.prototxt")])
+    rc_conv, conv_s, conv = run(
+        ["convert", "--solver", path("solver.prototxt"), "--variant", variant,
+         "--output-dir", path("converted")]
+        + [a for net in ("depth", "odom", "feat")
+           for a in ("--weights", f"{net}={path(net + '.caffemodel')}")])
+    if rc_info != 0 or "kind=train_graph" not in info or rc_conv != 0:
+        raise AssertionError(f"net-info rc {rc_info}, convert rc {rc_conv}: {conv[-800:]}")
+    conv_model = DepthVO.from_checkpoint(path("converted", "checkpoint"), device=dev)
+    d = conv_model.depth(images)
+    if not np.isfinite(d).all():
+        raise AssertionError("convert's checkpoint gives non-finite depth")
+    out["net_info_rc"] = rc_info
+    out["convert"] = {"rc": rc_conv, "seconds": conv_s,
+                      "optimizer": conv_model.config.optim.optimizer,
+                      "mean_folded": "(mean/scale folded)" in conv}
+    tmp.cleanup()
+    emit(out)
+
+
 def phase_serve(dev):
     import numpy as np
     import torch
@@ -1915,7 +2367,9 @@ def main() -> int:
     train_launches, premade_ms = phase_train("full_feat", dev)
     phase_scan("full_feat", dev, smi)
     phase_kitti_ckpt("full_feat", dev, smi, premade_ms)
-    phase_eval("full_feat", dev, smi)
+    fixtures = phase_eval("full_feat", dev, smi)
+    phase_int8_serving("full_feat", dev, smi, fixtures)
+    phase_caffe("full_feat", dev, smi)
     phase_serve(dev)
 
     summary = []

@@ -15,6 +15,13 @@ with ``device="cpu"``, and raises when there is no GPU otherwise.
 ``from_checkpoint`` / :func:`load_model` read a checkpoint directory of
 either package (``io/checkpoint.py``); :func:`predict_depth` and
 :func:`predict_pose` are the reference's functional aliases.
+
+``calibrate_int8`` switches depth inference to the w8a8 program
+(``layers.QuantConv``: int8 weights per output channel, static int8
+activations per tensor, int32 accumulation through cuBLASLt's int8 GEMM
+on the GPU); ``uncalibrate`` restores the float forward. ``quant`` holds
+the recorded scales, nested like the reference's ``quant`` collection,
+and ``set_quant`` seats such a tree (the port's or the reference's).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from depthvo_tpu_torch.configs import base as config_base
 from depthvo_tpu_torch.configs.base import ExperimentConfig, full_feat
 from depthvo_tpu_torch.geometry import se3
 from depthvo_tpu_torch.io import checkpoint as ckpt_io
-from depthvo_tpu_torch.io.from_jax import load_jax_params
+from depthvo_tpu_torch.io.from_jax import load_jax_params, quant_from_jax
 from depthvo_tpu_torch.train.state import Models, build_models, init_params, load_params
 from depthvo_tpu_torch.utils.device import resolve_device
 from depthvo_tpu_torch.utils.images import to_unit
@@ -43,6 +50,8 @@ class DepthVO:
         self.config = config
         self.models = models
         self.device = device
+        self._float_depth = None  # the float DepthNet while int8 is on
+        self._quant_net = None  # the quantized DepthNet, once calibration began
 
     # ---- constructors ----
     @classmethod
@@ -82,6 +91,79 @@ class DepthVO:
             if net is not None:
                 net.to(dev)
         return cls(config, models, dev)
+
+    # ---- quantized serving ----
+    @property
+    def quant(self) -> Dict[str, Any] | None:
+        """The recorded activation scales (``a_max`` per quantized conv,
+        nested like the reference's ``quant`` collection), or ``None``."""
+        return None if self._quant_net is None else self._quant_net.quant_tree()
+
+    def _quantized_depth(self):
+        if self._quant_net is None:
+            net = build_models(self.config, depth_quant="calibrate").depth
+            depth = self.models.depth if self._float_depth is None else self._float_depth
+            net.load_state_dict(depth.state_dict())
+            self._quant_net = net.to(self.device).eval()
+        return self._quant_net
+
+    def _use_int8(self) -> None:
+        net = self._quant_net.set_quant_mode("int8")
+        if self._float_depth is None:
+            self._float_depth = self.models.depth
+        self.models = self.models._replace(depth=net)
+
+    def calibrate_int8(self, images) -> "DepthVO":
+        """Switch depth inference to w8a8 int8 convolutions.
+
+        Runs the calibration forward (the convs in the compute dtype) over
+        ``images`` (representative frames, uint8 or [-1, 1] float),
+        recording each quantized conv's running max ``|x|``; repeated calls
+        accumulate it. Raises ``ValueError`` naming the layers whose scale
+        is still zero (the images never reached them). The 1-channel disp
+        heads and BatchNorm stay float. ``depth``, ``inverse_depth`` and
+        the eval sweeps run the int8 program after this call. Returns
+        self."""
+        net = self._quantized_depth().set_quant_mode("calibrate")
+        with torch.inference_mode():
+            net(to_unit(self._as_batch(images)))
+        bad = ["/".join(name.split(".")) + "/a_max" for name, conv in net.quant_convs().items()
+               if not float(conv.a_max) > 0]
+        if bad:
+            raise ValueError(
+                "calibrate_int8: calibration recorded zero activation "
+                f"scales at {bad} — the calibration images never reached "
+                "those convs (all-zero input?)"
+            )
+        self._use_int8()
+        return self
+
+    def set_quant(self, quant: Dict[str, Any]) -> "DepthVO":
+        """Seat recorded scales (:attr:`quant` of this package or of the
+        reference, leaf for leaf) and switch depth inference to int8.
+        Every quantized conv must get its ``a_max`` and every leaf must
+        find its conv. Returns self."""
+        net = self._quantized_depth()
+        convs = net.quant_convs()
+        given = quant_from_jax(quant)
+        missing = sorted(set(convs) - set(given))
+        extra = sorted(set(given) - set(convs))
+        if missing or extra:
+            raise KeyError(f"quant: missing {missing[:8]}, unexpected {extra[:8]}")
+        for name, a_max in given.items():
+            convs[name].a_max.copy_(a_max)
+        self._use_int8()
+        return self
+
+    def uncalibrate(self) -> "DepthVO":
+        """Undo :meth:`calibrate_int8`: the float depth forward again (the
+        same module as before, so bit for bit), scales dropped. Returns
+        self."""
+        if self._float_depth is not None:
+            self.models = self.models._replace(depth=self._float_depth)
+        self._float_depth = None
+        self._quant_net = None
+        return self
 
     # ---- inference ----
     def _as_batch(self, images) -> torch.Tensor:

@@ -12,10 +12,12 @@
   table and the KITTI odometry errors, from a model or from saved
   predictions / a pose file alone (no model, no device).
 
-Not ported: ``int8`` (ROADMAP A.6) and ``mesh`` / ``num_devices > 1``
-(A.8) raise ``NotImplementedError``. Pillow is not needed: the resize to
-the ground truth is ``eval/resize.py``; matplotlib draws the odometry
-figure where it is installed, and the run says so where it is not.
+``int8`` calibrates on the split's first frames and sweeps the w8a8
+program (``DepthVO.calibrate_int8``). Not ported: ``mesh`` /
+``num_devices > 1`` (A.8) raise ``NotImplementedError``. Pillow is not
+needed: the resize to the ground truth is ``eval/resize.py``; matplotlib
+draws the odometry figure where it is installed, and the run says so
+where it is not.
 """
 
 from __future__ import annotations
@@ -177,16 +179,18 @@ def run_depth_eval(
     stack, an npz, a ``save_preds_dir`` directory or per-frame ``.npy``
     files; ``pred_inverse`` for inverse depth): no model and no device.
 
+    ``int8`` calibrates on the split's first ``max(batch_size, 32)``
+    frames and runs the w8a8 program (``DepthVO.calibrate_int8``).
+
     The result holds a ``split`` block ``{split_file, n_frames, canonical,
-    source, median_scale, sha256, pinned, ...}`` and ``quant``; a warning
+    source, median_scale, sha256, pinned, ...}`` and ``quant`` ("off",
+    "int8", or "external" for saved predictions); a warning
     is raised unless the split is the canonical 697-frame list.
     ``split_sha`` pins the split file's SHA-256: a file that differs is
     refused.
 
-    Not ported: ``int8`` (A.6) and ``num_devices > 1`` (A.8) raise.
+    Not ported: ``num_devices > 1`` (A.8) raises.
     """
-    if int8:
-        raise NotImplementedError("int8 serving is not ported yet (ROADMAP A.6)")
     if num_devices is not None and num_devices > 1:
         raise NotImplementedError(
             f"num_devices={num_devices}: data-parallel eval is not ported yet (ROADMAP A.8)")
@@ -234,6 +238,9 @@ def run_depth_eval(
 
     # Decoded as uint8 on host threads, normalised on the device.
     frames = load_images_u8(images, height, width)
+    if int8:
+        # The split's first frames are representative by construction.
+        model.calibrate_int8(frames[:max(batch_size, 32)])
     preds_resized = predict_depths(model, frames, batch_size, postprocess=_resize_to_gt)
     if save_preds_dir:
         os.makedirs(save_preds_dir, exist_ok=True)
@@ -242,7 +249,7 @@ def run_depth_eval(
         preds_resized, gts, split_file, split_source,
         max_depth=max_depth, median_scale=median_scale, extra_split=sha_prov,
     )
-    metrics["quant"] = "off"
+    metrics["quant"] = "int8" if int8 else "off"
     return metrics
 
 

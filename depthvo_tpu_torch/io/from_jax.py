@@ -15,6 +15,10 @@ into the port's state dicts. The port's modules carry flax's auto-names
 Nothing here imports JAX: arrays are read with ``numpy.asarray``. Every
 leaf of both trees must be consumed and every parameter of the port's
 networks filled, or the load raises.
+
+:func:`quant_from_jax` carries a calibrated model's ``quant`` collection
+(``.../ConvBlock_k/Conv_0/a_max``) across the same way: a conv's path
+joined with ``.`` names its ``layers.QuantConv``.
 """
 
 from __future__ import annotations
@@ -103,6 +107,17 @@ def seat_state_dict(net: torch.nn.Module, name: str,
                 f"{name}.{k}: shape {tuple(v.shape)} != {tuple(target[k].shape)}"
             )
     net.load_state_dict(sd, strict=False)
+
+
+def quant_from_jax(quant: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``quant`` collection (nested dicts whose leaves are all ``a_max``
+    scalars) -> ``{"<conv path>": float32 0-d tensor}``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, x in _leaves(quant):
+        if path[-1] != "a_max" or x.size != 1:
+            raise ValueError(f"unexpected quant leaf {'/'.join(path)} {x.shape}")
+        out[".".join(path[:-1])] = torch.tensor(float(x.reshape(())), dtype=torch.float32)
+    return out
 
 
 def load_jax_params(models: Models, params: Mapping[str, Any],

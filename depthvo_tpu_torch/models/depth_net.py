@@ -31,18 +31,31 @@ names.
 ``compute_dtype="bfloat16"`` runs the convolutions under
 ``torch.autocast``; the parameters stay float32 and the disp heads'
 sigmoid runs in float32, as in the reference.
+
+``quant_mode`` ("off", "calibrate", "int8") is the reference's w8a8
+serving switch: every conv of the encoder and the decoder becomes a
+``layers.QuantConv`` with the same parameters; the 1-channel disparity
+heads and the 4-channel subpixel head stay float. ``s2d_finest`` with a
+quant mode raises, as in the reference (``train/state.py::build_models``
+turns it off for quantized serving). :meth:`DepthNet.set_quant_mode`
+moves a quantized net between "calibrate" and "int8", and
+:meth:`DepthNet.quant_tree` gives the recorded ``a_max`` keyed like the
+reference's ``quant`` collection.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from depthvo_tpu_torch.models.layers import (
+    QUANT_MODES,
     Conv,
     ConvBlock,
+    QuantConv,
     ResNetStage,
     UpConv,
     depth_to_space2,
@@ -82,6 +95,7 @@ class DepthNet(nn.Module):
         subpixel_head: bool = False,
         remat: bool = False,
         s2d_finest: bool = False,
+        quant_mode: str = "off",
     ):
         super().__init__()
         if sum((fast_final_upsample, subpixel_head, s2d_finest)) > 1:
@@ -89,6 +103,15 @@ class DepthNet(nn.Module):
                 "fast_final_upsample, subpixel_head and s2d_finest are "
                 "mutually exclusive finest-stage modes"
             )
+        if quant_mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got {quant_mode!r}")
+        if s2d_finest and quant_mode != "off":
+            raise ValueError(
+                "s2d_finest is a training-graph lever; int8 serving uses "
+                "the standard or subpixel head (quant_mode must be 'off')"
+            )
+        self.quant_mode = quant_mode
+        q = quant_mode
         self.num_scales = num_scales
         self.max_disp = max_disp
         self.min_disp = min_disp
@@ -99,13 +122,13 @@ class DepthNet(nn.Module):
         self.num_stages = len(stage_planes)
         self.num_up = len(decoder_features)
 
-        self.ConvBlock_0 = ConvBlock(3, stem_features, 7, 2)
+        self.ConvBlock_0 = ConvBlock(3, stem_features, 7, 2, quant_mode=q)
         skip_ch = [stem_features]
         in_ch = stem_features
         for i, (planes, blocks) in enumerate(zip(stage_planes, stage_blocks)):
             self.add_module(
                 f"ResNetStage_{i}",
-                ResNetStage(in_ch, planes, blocks, 1 if i == 0 else 2),
+                ResNetStage(in_ch, planes, blocks, 1 if i == 0 else 2, q),
             )
             in_ch = 4 * planes
             skip_ch.append(in_ch)
@@ -119,11 +142,12 @@ class DepthNet(nn.Module):
                 break
             if i == last and fast_final_upsample:
                 break
-            self.add_module(f"UpConv_{i}", UpConv(in_ch, feats))
+            self.add_module(f"UpConv_{i}", UpConv(in_ch, feats, q))
             skip_idx = len(skip_ch) - 2 - i
             cat_ch = feats + (skip_ch[skip_idx] if skip_idx >= 0 else 0)
             self.add_module(
-                f"ConvBlock_{i + 1}", ConvBlock(cat_ch, feats, 3, 1, use_bn=False)
+                f"ConvBlock_{i + 1}",
+                ConvBlock(cat_ch, feats, 3, 1, use_bn=False, quant_mode=q)
             )
             scale_idx = i - (self.num_up - num_scales)
             # fast_final_upsample needs the 1/2-resolution disp to resize.
@@ -131,6 +155,37 @@ class DepthNet(nn.Module):
                 self.heads[i] = f"Conv_{len(self.heads)}"
                 self.add_module(self.heads[i], Conv(feats, 1, 3))
             in_ch = feats
+
+    def quant_convs(self) -> Dict[str, QuantConv]:
+        """The quantized convs by module path (empty with ``quant_mode="off"``)."""
+        return {n: m for n, m in self.named_modules() if isinstance(m, QuantConv)}
+
+    def set_quant_mode(self, mode: str) -> "DepthNet":
+        """Move a quantized net between "calibrate" and "int8"; "int8"
+        fixes the scales and quantizes the weights once
+        (``QuantConv.quantize``)."""
+        if self.quant_mode == "off":
+            raise ValueError("set_quant_mode: this DepthNet was built with quant_mode='off'")
+        if mode not in ("calibrate", "int8"):
+            raise ValueError(f"set_quant_mode: calibrate|int8, got {mode!r}")
+        for conv in self.quant_convs().values():
+            conv.mode = mode
+            if mode == "int8":
+                conv.quantize()
+        self.quant_mode = mode
+        return self
+
+    def quant_tree(self) -> Dict[str, Any]:
+        """``a_max`` of each quantized conv as float32 numpy scalars, nested
+        like the reference's ``quant`` collection
+        (``{"ConvBlock_0": {"Conv_0": {"a_max": ...}}, ...}``)."""
+        tree: Dict[str, Any] = {}
+        for name, conv in self.quant_convs().items():
+            node = tree
+            for part in name.split("."):
+                node = node.setdefault(part, {})
+            node["a_max"] = np.asarray(conv.a_max.detach().cpu().numpy(), np.float32)
+        return tree
 
     def _disp(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """Stage ``i``'s head: ``max_disp * sigmoid + min_disp`` in float32,

@@ -19,6 +19,11 @@ flax differ, each pinned by a parity test (tests/test_torch_models.py):
 * ``resize_bilinear(_chw)`` is ``jax.image.resize(method="linear")``,
   which antialiases when it shrinks: ``F.interpolate(...,
   antialias=True)``. ``upsample2x`` is nearest-neighbour.
+
+``quant_mode`` ("off", "calibrate", "int8") threads through
+``ConvBlock``, ``Bottleneck``, ``ResNetStage`` and ``UpConv`` as in the
+reference: anything but "off" makes each block's ``Conv_0`` a
+:class:`QuantConv`, which has the same parameters under the same name.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from depthvo_tpu_torch.ops import int8_conv
+
+QUANT_MODES = ("off", "calibrate", "int8")
 _RECOMPUTE = threading.local()  # .on: inside the recompute of a remat region
 
 
@@ -50,14 +58,94 @@ class Conv(nn.Conv2d):
         super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0,
                          dilation=dilation, bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def pads(self, x: torch.Tensor):
+        """flax's ``SAME`` pads of ``x`` as ``F.pad`` takes them: (left,
+        right, top, bottom)."""
         k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
         ph = same_pads(x.shape[-2], k, s, d)
         pw = same_pads(x.shape[-1], k, s, d)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, s, (ph[0], pw[0]), d)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return pw[0], pw[1], ph[0], ph[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        left, right, top, bottom = self.pads(x)
+        s, d = self.stride[0], self.dilation[0]
+        if left == right and top == bottom:
+            return F.conv2d(x, self.weight, self.bias, s, (top, left), d)
+        x = F.pad(x, (left, right, top, bottom))
         return F.conv2d(x, self.weight, self.bias, s, 0, d)
+
+
+class QuantConv(Conv):
+    """int8 x int8 -> int32 convolution for w8a8 serving (the reference's
+    ``layers.QuantConv``).
+
+    The parameters are :class:`Conv`'s (``weight`` OIHW, optional
+    ``bias``), so state dicts load unchanged in every mode. The buffers
+    are not part of the state dict:
+
+    * ``a_max``: the running max of ``|x|`` that ``mode="calibrate"``
+      records while it runs the convolution in the compute dtype;
+    * ``a_scale``, ``w_q``, ``y_scale``: made by :meth:`quantize` once per
+      calibration (the reference folds them into its serving program):
+      ``a_scale = a_max / 127`` (NaN where ``a_max`` is 0, so an
+      uncalibrated layer fails loudly), the symmetric per-output-channel
+      int8 weights ``w_q = clip(round(W / w_scale), -127, 127)`` with
+      ``w_scale = max(max|W|, 1e-12) / 127``, and ``y_scale = a_scale *
+      w_scale``. They are computed on the CPU and then moved, so every
+      device has the same bits (a CUDA division by a Python number
+      multiplies by its reciprocal, which can differ in the last bit).
+
+    ``mode="int8"``: ``x_q = clip(round(x / a_scale), -127, 127)`` (round
+    half to even in both stacks), the int32 convolution of
+    :mod:`ops.int8_conv`, then ``y * y_scale`` cast to the compute dtype
+    and the bias. Every cast is explicit: the compute dtype is autocast's
+    where autocast is on, else float32.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 dilation: int = 1, bias: bool = True, mode: str = "calibrate"):
+        super().__init__(in_ch, out_ch, kernel, stride, dilation, bias)
+        if mode not in ("calibrate", "int8"):
+            raise ValueError(f"QuantConv mode must be calibrate|int8, got {mode!r}")
+        self.mode = mode
+        self.register_buffer("a_max", torch.zeros(()), persistent=False)
+        self.register_buffer("a_scale", torch.zeros(()), persistent=False)
+        self.register_buffer("w_q", torch.zeros(0, dtype=torch.int8), persistent=False)
+        self.register_buffer("y_scale", torch.zeros(0), persistent=False)
+
+    @torch.no_grad()
+    def quantize(self) -> None:
+        """``a_scale``, ``w_q`` (as :func:`int8_conv.weight_matrix`'s (O, Kp)
+        matrix) and ``y_scale`` from the current ``a_max`` and weights."""
+        dev = self.weight.device
+        a_max = self.a_max.cpu()
+        a_scale = a_max.masked_fill(~(a_max > 0), float("nan")) / 127.0
+        w = self.weight.detach().float().cpu()
+        w_scale = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0
+        w_q = torch.round(w / w_scale[:, None, None, None]).clamp(-127, 127)
+        self.a_scale = a_scale.to(dev)
+        self.w_q = int8_conv.weight_matrix(w_q.to(torch.int8)).to(dev)
+        self.y_scale = (a_scale * w_scale).to(dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "calibrate":
+            with torch.no_grad():
+                self.a_max.copy_(torch.maximum(self.a_max, x.detach().abs().amax().float()))
+            return super().forward(x)
+        if self.w_q.numel() == 0:
+            raise RuntimeError("QuantConv: call quantize() before the int8 forward")
+        dev = x.device.type
+        dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else torch.float32
+        # No op below is on autocast's lists (the GEMM is _int_mm, the rest
+        # elementwise), so autocast leaves every dtype as cast here; an
+        # autocast-off region per conv would only split an exported graph.
+        x_q = torch.round(x.float() / self.a_scale).clamp(-127, 127).to(torch.int8)
+        y = int8_conv.int8_conv2d(x_q, self.w_q, self.kernel_size[0], self.stride[0],
+                                  self.dilation[0], self.pads(x))
+        y = (y.float() * self.y_scale[:, None, None]).to(dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)[:, None, None]
+        return y
 
 
 def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2):
@@ -104,6 +192,18 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_((1.0 - r) * (1.0 - self.momentum)).add_(var_u, alpha=r)
         return y
 
+    def eval_ieee(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval mode as flax writes it, ``(x - mean) * (scale / sqrt(var +
+        eps)) + bias``, in separate correctly rounded float32 ops, so every
+        device gives the same bits (cuDNN's and the CPU's fused kernels
+        differ in the last bit). The int8 forward uses it: a last-bit
+        difference flips an activation's int8 code where it sits on a
+        rounding edge, and the flips compound over the encoder."""
+        shape = (1, -1, 1, 1)
+        mul = self.weight / torch.sqrt(self.running_var + self.eps)
+        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
 
 class ConvBlock(nn.Module):
     """Conv -> (BN) -> activation, the basic unit of every tower. The conv
@@ -111,31 +211,40 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
                  stride: int = 1, use_bn: bool = True, act: bool = True,
-                 dilation: int = 1):
+                 dilation: int = 1, quant_mode: str = "off"):
         super().__init__()
-        self.Conv_0 = Conv(in_ch, features, kernel, stride, dilation,
-                           bias=not use_bn)
+        if quant_mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got {quant_mode!r}")
+        if quant_mode == "off":
+            self.Conv_0 = Conv(in_ch, features, kernel, stride, dilation, bias=not use_bn)
+        else:
+            self.Conv_0 = QuantConv(in_ch, features, kernel, stride, dilation,
+                                    bias=not use_bn, mode=quant_mode)
         self.BatchNorm_0 = BatchNorm(features) if use_bn else None
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Conv_0(x)
         if self.BatchNorm_0 is not None:
-            x = self.BatchNorm_0(x)
+            if getattr(self.Conv_0, "mode", None) == "int8" and not self.training:
+                x = self.BatchNorm_0.eval_ieee(x)
+            else:
+                x = self.BatchNorm_0(x)
         return F.relu(x) if self.act else x
 
 
 class Bottleneck(nn.Module):
     """ResNet bottleneck block (1x1 -> 3x3 -> 1x1, x4 expansion)."""
 
-    def __init__(self, in_ch: int, planes: int, stride: int = 1):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, quant_mode: str = "off"):
         super().__init__()
         out_ch = 4 * planes
-        self.ConvBlock_0 = ConvBlock(in_ch, planes, 1, 1)
-        self.ConvBlock_1 = ConvBlock(planes, planes, 3, stride)
-        self.ConvBlock_2 = ConvBlock(planes, out_ch, 1, 1, act=False)
+        q = quant_mode
+        self.ConvBlock_0 = ConvBlock(in_ch, planes, 1, 1, quant_mode=q)
+        self.ConvBlock_1 = ConvBlock(planes, planes, 3, stride, quant_mode=q)
+        self.ConvBlock_2 = ConvBlock(planes, out_ch, 1, 1, act=False, quant_mode=q)
         self.ConvBlock_3 = (
-            ConvBlock(in_ch, out_ch, 1, stride, act=False)
+            ConvBlock(in_ch, out_ch, 1, stride, act=False, quant_mode=q)
             if in_ch != out_ch or stride != 1 else None
         )
 
@@ -148,13 +257,14 @@ class Bottleneck(nn.Module):
 class ResNetStage(nn.Module):
     """A stack of bottleneck blocks; the first block may downsample."""
 
-    def __init__(self, in_ch: int, planes: int, num_blocks: int, stride: int):
+    def __init__(self, in_ch: int, planes: int, num_blocks: int, stride: int,
+                 quant_mode: str = "off"):
         super().__init__()
         for i in range(num_blocks):
             self.add_module(
                 f"Bottleneck_{i}",
                 Bottleneck(in_ch if i == 0 else 4 * planes, planes,
-                           stride if i == 0 else 1),
+                           stride if i == 0 else 1, quant_mode),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -217,9 +327,10 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 class UpConv(nn.Module):
     """Nearest 2x upsample, then a 3x3 conv + ReLU (the decoder unit)."""
 
-    def __init__(self, in_ch: int, features: int):
+    def __init__(self, in_ch: int, features: int, quant_mode: str = "off"):
         super().__init__()
-        self.ConvBlock_0 = ConvBlock(in_ch, features, 3, 1, use_bn=False)
+        self.ConvBlock_0 = ConvBlock(in_ch, features, 3, 1, use_bn=False,
+                                     quant_mode=quant_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ConvBlock_0(upsample2x(x))

@@ -62,9 +62,15 @@ def stage_nets(config: ExperimentConfig):
     )
 
 
-def build_models(config: ExperimentConfig) -> Models:
+def build_models(config: ExperimentConfig, depth_quant: str = "off") -> Models:
     """The stage's networks on the CPU, in eval mode, with torch's default
-    initialisation (load parameters with :func:`load_params`)."""
+    initialisation (load parameters with :func:`load_params`).
+
+    ``depth_quant``: the DepthNet's quantization mode, "off" for training
+    and the float forward, "calibrate" / "int8" for w8a8 serving
+    (``api.DepthVO.calibrate_int8``). Quantized serving runs the standard
+    finest stage: the reference's s2d rewrite is a training-speed lever,
+    and its scales are defined on the standard conv shapes."""
     mc = config.model
     dt = compute_dtype(config)
     nets = stage_nets(config)
@@ -78,8 +84,9 @@ def build_models(config: ExperimentConfig) -> Models:
         remat=mc.remat,
         # The standard stage's function; it still counts as a finest-stage
         # mode for the heads' mutual exclusion, as in the reference.
-        s2d_finest=mc.s2d_finest,
+        s2d_finest=mc.s2d_finest and depth_quant == "off",
         decoder_features=tuple(mc.decoder_features),
+        quant_mode=depth_quant,
     )
     odom = OdomNet(compute_dtype=dt).eval() if "odom" in nets else None
     feat = (

@@ -12,7 +12,12 @@ import torch
 
 
 def to_unit(images: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] float32 from either pre-normalized floats or raw uint8."""
+    """[-1, 1] float32 from either pre-normalized floats or raw uint8.
+
+    The divisor is a tensor: CUDA divides by a Python number as a product
+    with its reciprocal, which is off by one bit for about half of the
+    256 codes, and the devices would then disagree in the last bit."""
     if images.dtype == torch.uint8:
-        return images.float() / 127.5 - 1.0
+        x = images.float()
+        return x / torch.full_like(x, 127.5) - 1.0
     return images.float()

@@ -530,17 +530,31 @@ def test_cli_eval_depth_and_saved_predictions(eigen_tree, depth_evals, tmp_path,
 
 
 @pytest.mark.parametrize("flags,match", [(["--int8"], "A.6"), (["--num-devices", "2"], "A.8")])
-def test_cli_unported_flags_raise(eigen_tree, tmp_path, flags, match):
+def test_cli_unported_flags_raise(eigen_tree, tmp_path, flags, match, capsys):
+    """``--num-devices 2`` (A.8) raises in the CLI and in the runner.
+    ``--int8`` raised until A.6 ported it: now ``eval-depth --int8`` runs the
+    w8a8 sweep and says so (``quant``, ``split.int8``), as the reference's
+    does, and ``run_depth_eval(int8=True)`` too."""
     root, split, _ = eigen_tree
+    argv = ["eval-depth", "--variant", "tiny_test", "--device", "cpu", "--kitti-root", root,
+            "--split-file", split] + flags
+    kw = {"int8": True} if match == "A.6" else {"num_devices": 2}
+    if match == "A.6":
+        with pytest.warns(UserWarning, match="NON-CANONICAL"):
+            assert tcli.main(argv) == 0
+        out = _json_out(capsys)
+        assert out["quant"] == "int8" and out["split"]["int8"] is True
+        model = tapi.DepthVO.from_random(tconfigs.tiny_test(), device="cpu")
+        with pytest.warns(UserWarning, match="NON-CANONICAL"):
+            table = trunner.run_depth_eval(None, root, split, height=32, width=96, model=model,
+                                           **kw)
+        assert table["quant"] == "int8" and model.quant is not None
+        assert all(np.isfinite(table[k]) for k in CONTINUOUS + THRESHOLDS)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        tcli.main(["eval-depth", "--device", "cpu", "--kitti-root", root,
-                   "--split-file", split] + flags)
-    if flags == ["--int8"]:
-        with pytest.raises(NotImplementedError, match=match):
-            tcli.main(["infer", "--device", "cpu", "--images", str(tmp_path)] + flags)
-    for kw in ({"int8": True}, {"num_devices": 2}):
-        with pytest.raises(NotImplementedError):
-            trunner.run_depth_eval(None, root, split, **kw)
+        tcli.main(argv)
+    with pytest.raises(NotImplementedError):
+        trunner.run_depth_eval(None, root, split, **kw)
 
 
 def test_cli_eval_odom(odom_tree, tmp_path, capsys):
