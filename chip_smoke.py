@@ -212,7 +212,33 @@ with a nonzero exit code:
              pretrain-feat --steps 5`` then ``cli train --init-feat-from``
              for 2 steps: exit 0 and the trained checkpoint's feature net
              is the pretrained one; ms per bfloat16 pretrain step.
-13. serve  - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
+13. bench  - the reference's tooling and surface (A.10-A.13) at 608x160,
+             batch 4: ``cli device-query`` (rc 0; name, capability, SM
+             count and memory equal ``torch.cuda.get_device_properties``);
+             ``cli bench --mode train_step`` and ``train_step_scan`` with
+             exactly 1 stereo_fwd, 2 stereo_bwd_u, 1 gen_fwd and 4
+             gen_bwd_uv launches per step run (K per call under replay),
+             their ms/step, frames/s, ``flops_per_step`` and ``mfu``, the
+             scan mode within 15% of phase scan's graph ms/step and the
+             eager mode beside phase train's; ``--trace-dir`` on
+             ``train_step``: the four kernels' names in the Chrome trace;
+             ``depth_infer`` (bf16, ``--int8``), ``odom_infer`` and
+             ``warp`` frames/s; ``depth_layer_table`` on four boundaries
+             and ``cli bench --mode odom_layers`` / ``feat_layers``: the
+             reference's row names, no negative time, monotone
+             cumulatives; the NHWC ``ops.stereo_warp`` with a
+             differentiated source (1 stereo_fwd + 1 stereo_bwd_src) and
+             ``ops.frozen_warp`` with a differentiated depth (1 gen_fwd +
+             1 gen_bwd_uv), f32, against the CHW path everywhere and the
+             plain versions on the same coordinates and cotangent under
+             ``valid``, forward and gradient: 0.0; ``cli train --iter-size
+             2 --remat --debug-nans --steps 4 --steps-per-call 2`` exits 0
+             under the graph; ``--debug-nans`` on a ``--config`` whose
+             learning rate turns infinite at update 2 raises
+             ``FloatingPointError`` after step 3 with only checkpoint 2
+             written; ``--tensorboard`` writes events, or raises the
+             reference's ``ModuleNotFoundError`` without the package.
+14. serve  - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
              uint8 batch and pose of its frame pairs; shapes, finiteness
              and latency.
 
@@ -238,6 +264,9 @@ import subprocess
 import sys
 import time
 
+# The package's CUDA-graph replay timer (every kernel time below).
+from depthvo_tpu_torch.utils.profiling import device_ms  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH = 4
@@ -253,38 +282,6 @@ STATS_RTOL = 2e-4
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def device_ms(fn, runs: int = 25, per_run: int = 10) -> float:
-    """Median device time of one ``fn()`` call: ``per_run`` calls are
-    captured in a CUDA graph and each of ``runs`` replays is timed with
-    CUDA events, so host launch overhead stays out of the number."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_run):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_run)
-    del graph
-    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -2679,6 +2676,295 @@ def phase_pretrain_feat(variant: str, dev, smi: str):
     emit(out)
 
 
+BENCH_STEPS = 10
+BENCH_WARMUP = 5  # utils.profiling.time_fn's default warm-up calls
+DEPTH_LAYER_SUBSET = ("ConvBlock_0", "ResNetStage_3", "ConvBlock_5", "Conv_3")
+
+
+def _bench(argv) -> dict:
+    """``cli bench`` with ``argv``: exit 0, its JSON line."""
+    from depthvo_tpu_torch import cli
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["bench", *argv])
+    lines = printed.getvalue().splitlines()
+    if rc != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"cli bench {argv}: rc {rc}, {lines[-3:]}")
+    return json.loads(lines[-1])
+
+
+def _layer_rows(result: dict, names) -> list:
+    """The table's rows, held to the reference's names in order, each
+    time non-negative and each cumulative monotone."""
+    rows = result["rows"]
+    got = [r["layer"] for r in rows]
+    times = [r[k] for r in rows for k in ("forward_ms", "backward_ms")]
+    cums = [[r[k] for r in rows] for k in ("fwd_cumulative_ms", "bwd_cumulative_ms")]
+    if got != list(names) or min(times) < 0 or any(c != sorted(c) for c in cums):
+        raise AssertionError(f"layer table {result['mode']}: {rows}")
+    return rows
+
+
+def _nhwc_warps(cfg, dev) -> dict:
+    """The NHWC ``ops.stereo_warp`` with a differentiated source (K1, K3)
+    and ``ops.frozen_warp`` with a differentiated depth (K4, K5) at the
+    finest scale, against the CHW path everywhere and against the plain
+    versions (run on the card on the same coordinates and cotangent)
+    under ``valid``, forward and gradient: bit for bit."""
+    import numpy as np
+    import torch
+
+    from depthvo_tpu_torch import ops
+    from depthvo_tpu_torch.configs.base import stereo_dmax
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.geometry import se3
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+
+    H, W = cfg.model.height, cfg.model.width
+    host = SyntheticScenes(cfg, seed=11, num_scenes=BATCH).fixed_batch(BATCH)
+    rng = np.random.default_rng(11)
+    K = torch.as_tensor(host["K"], device=dev)
+    depth = torch.as_tensor(rng.uniform(4.0, 40.0, (BATCH, H, W)), dtype=torch.float32,
+                            device=dev)
+    G = torch.as_tensor(rng.normal(size=(BATCH, H, W, 3)), dtype=torch.float32, device=dev)
+    out = {}
+
+    # Stereo: the source differentiated, the depth not (K1 forward, K3 backward).
+    fxb = K[:, 0, 0] * cfg.stereo_baseline
+    dmax = stereo_dmax(cfg, W)
+    src = torch.as_tensor(host["image_r"], device=dev)
+    u, valid = wk.stereo_warp_prep((H, W), depth, fxb, dmax)
+    g = G * valid[..., None]
+    src_nhwc = src.clone().requires_grad_(True)
+    wk.reset_launches()
+    warped, valid_n = ops.stereo_warp(src_nhwc, depth, fxb, dmax=dmax)
+    (warped * g).sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: wk.launch_count(k) for k in KERNELS}
+    if launches != {**dict.fromkeys(KERNELS, 0), "stereo_fwd": 1, "stereo_bwd_src": 1}:
+        raise AssertionError(f"NHWC stereo_warp launched {launches}")
+    src_chw = src.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    warped_c, valid_c = ops.stereo_warp_chw(src_chw, depth, fxb, dmax=dmax)
+    (warped_c * g.permute(0, 3, 1, 2)).sum().backward()
+    g_chw = g.permute(0, 3, 1, 2).contiguous()
+    plain = wk.stereo_sample_plain(src.permute(0, 3, 1, 2).contiguous(), u)
+    plain_dsrc = wk.stereo_bwd_src_plain(g_chw, u, dmax)
+    d_src = src_nhwc.grad.permute(0, 3, 1, 2)
+    errs = {
+        "vs_chw": max(float((warped.permute(0, 3, 1, 2) - warped_c).detach().abs().max()),
+                      float((d_src - src_chw.grad).abs().max())),
+        "vs_plain": max(masked_max_err(warped.permute(0, 3, 1, 2).detach(), plain, valid),
+                        float((d_src - plain_dsrc).abs().max())),
+    }
+    if not (torch.equal(valid_n, valid) and torch.equal(valid_c, valid)) or max(errs.values()):
+        raise AssertionError(f"NHWC stereo_warp: {errs}")
+    out["stereo_warp"] = {"launches": launches, "max_abs_err": errs,
+                          "valid_share": float(valid.float().mean()), "dmax": dmax}
+
+    # General: the source frozen, the depth differentiated (K4, K5).
+    pad_v = cfg.warp_pad_v
+    twist = torch.tensor([[0.02, -0.01, -0.3, 0.002, -0.003, 0.001]] * BATCH, device=dev)
+    T = se3.exp(twist)
+    src = torch.as_tensor(host["image_s"], device=dev)
+    grads = {}
+    d = depth.clone().requires_grad_(True)
+    u, v, valid = ops._frozen_warp_prep((H, W), d, T, K, pad_v)
+    g = G * valid[..., None]
+    g_chw = g.permute(0, 3, 1, 2).contiguous()
+    d_u, d_v = wk.gen_bwd_uv_plain(src.permute(0, 3, 1, 2).contiguous(), g_chw, u.detach(),
+                                   v.detach())
+    (grads["plain"],) = torch.autograd.grad([u, v], d, [d_u, d_v])
+    plain = wk.gen_sample_plain(src.permute(0, 3, 1, 2).contiguous(), u.detach(), v.detach())
+    d = depth.clone().requires_grad_(True)
+    wk.reset_launches()
+    warped, valid_n = ops.frozen_warp(src, d, T, K, pad_v=pad_v)
+    (warped * g).sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: wk.launch_count(k) for k in KERNELS}
+    if launches != {**dict.fromkeys(KERNELS, 0), "gen_fwd": 1, "gen_bwd_uv": 1}:
+        raise AssertionError(f"NHWC frozen_warp launched {launches}")
+    grads["nhwc"] = d.grad
+    d = depth.clone().requires_grad_(True)
+    warped_c, valid_c = ops.frozen_warp_chw(src.permute(0, 3, 1, 2), d, T, K, pad_v=pad_v)
+    (warped_c * g_chw).sum().backward()
+    grads["chw"] = d.grad
+    errs = {
+        "vs_chw": max(float((warped.permute(0, 3, 1, 2) - warped_c).detach().abs().max()),
+                      float((grads["nhwc"] - grads["chw"]).abs().max())),
+        "vs_plain": max(masked_max_err(warped.permute(0, 3, 1, 2).detach(), plain, valid),
+                        float((grads["nhwc"] - grads["plain"]).abs().max())),
+    }
+    if not (torch.equal(valid_n, valid) and torch.equal(valid_c, valid)) or max(errs.values()):
+        raise AssertionError(f"NHWC frozen_warp: {errs}")
+    if not float(grads["nhwc"].abs().max()) > 0:
+        raise AssertionError("NHWC frozen_warp: no gradient reached the depth")
+    out["frozen_warp"] = {"launches": launches, "max_abs_err": errs,
+                          "valid_share": float(valid.float().mean()), "pad_v": pad_v}
+    return out
+
+
+def _train_flags(variant: str, cfg) -> dict:
+    """``cli train --iter-size 2 --remat --debug-nans --steps-per-call 2``
+    under the graph; ``--debug-nans`` on a run whose learning rate turns
+    infinite at update 2 (``--config``); ``--tensorboard``."""
+    import os
+    import tempfile
+
+    from depthvo_tpu_torch import cli
+    from depthvo_tpu_torch.configs import base as config_base
+
+    out = {}
+    base = ["train", "--batch-size", str(BATCH), "--device", "cuda", "--log-every", "1"]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(base + ["--variant", variant, "--iter-size", "2", "--remat",
+                              "--debug-nans", "--steps", "4", "--steps-per-call", "2"])
+    lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")]
+    if rc != 0 or [ln.split(":")[0] for ln in lines] != ["step 1", "step 3"]:
+        raise AssertionError(f"cli train --iter-size 2 --remat --debug-nans: rc {rc}, {lines}")
+    out["iter_size_remat_debug_nans"] = {"rc": rc, "logged": lines}
+
+    tmp = tempfile.TemporaryDirectory(prefix="flags-")
+    try:
+        bad = dataclasses.replace(cfg, checkpoint_every=1, optim=dataclasses.replace(
+            cfg.optim, lr_policy="multistep", lr_step_values=(2,),
+            lr_decay_factor=float("inf"), warmup_steps=0))
+        cfg_path, ckpt = os.path.join(tmp.name, "inf_lr.json"), os.path.join(tmp.name, "ckpt")
+        config_base.save_json(bad, cfg_path)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["train", "--config", cfg_path, "--device", "cuda", "--steps", "4",
+                          "--steps-per-call", "2", "--debug-nans", "--checkpoint-dir", ckpt])
+        except FloatingPointError as e:
+            message = str(e)
+        else:
+            raise AssertionError("--debug-nans did not raise on an infinite learning rate")
+        saved = sorted(int(n) for n in os.listdir(ckpt) if n.isdigit())
+        if "after step 3" not in message or saved != [2]:
+            raise AssertionError(f"--debug-nans: {message!r}, checkpoints {saved}")
+        out["debug_nans_injected"] = {"message": message, "checkpoints": saved}
+
+        tb = os.path.join(tmp.name, "tb")
+        argv = base + ["--variant", variant, "--steps", "2", "--tensorboard", tb]
+        try:
+            import torch.utils.tensorboard  # noqa: F401
+        except ModuleNotFoundError:
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(argv)
+            except ModuleNotFoundError as e:
+                if "--tensorboard needs torch + tensorboard" not in str(e):
+                    raise
+                out["tensorboard"] = {"installed": False, "error": str(e)}
+            else:
+                raise AssertionError("--tensorboard ran without the tensorboard package")
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(argv)
+            events = [n for n in os.listdir(tb) if n.startswith("events.")]
+            if rc != 0 or not events:
+                raise AssertionError(f"--tensorboard: rc {rc}, {os.listdir(tb)}")
+            out["tensorboard"] = {"installed": True, "event_files": events}
+    finally:
+        tmp.cleanup()
+    return out
+
+
+def phase_bench(variant: str, dev, smi: str, scan_graph_ms: float, train_eager_ms: float):
+    """``cli device-query``, ``cli bench`` in every mode, the NHWC warps and
+    the ``cli train`` flags of A.10-A.13 on the card."""
+    import os
+    import tempfile
+
+    import torch
+
+    from depthvo_tpu_torch import cli, configs
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+    from depthvo_tpu_torch.utils import profiling
+
+    cfg = getattr(configs, variant)(batch_size=BATCH)
+    H, W = cfg.model.height, cfg.model.width
+    out = {"phase": "bench", "config": variant, "hw": [H, W], "batch": BATCH,
+           "nvidia_smi": smi}
+
+    # (1) device-query against the device's own properties.
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["device-query"])
+    query = json.loads(printed.getvalue().splitlines()[-1])
+    prop = torch.cuda.get_device_properties(0)
+    want = {"name": prop.name, "capability": [prop.major, prop.minor],
+            "sm_count": prop.multi_processor_count, "total_memory": prop.total_memory}
+    got = {k: query["devices"][0][k] for k in want}
+    if rc != 0 or got != want or len(query["devices"]) != torch.cuda.device_count():
+        raise AssertionError(f"device-query: rc {rc}, {query} vs {want}")
+    out["device_query"] = query
+
+    # (2) The train modes: every step launches the train phase's kernels
+    # (counted in the counters, K per call under replay); ms/step beside
+    # the train and scan phases' numbers for the same steps.
+    common = ["--variant", variant, "--batch-size", str(BATCH), "--height", str(H),
+              "--width", str(W), "--device", "cuda"]
+    per_step = _train_launches(cfg)
+    for mode, steps_run in (("train_step", 1 + BENCH_WARMUP + BENCH_STEPS),
+                            ("train_step_scan", 1 + (BENCH_WARMUP + BENCH_STEPS) * SCAN_K)):
+        wk.reset_launches()
+        res = _bench(common + ["--mode", mode, "--steps", str(BENCH_STEPS)])
+        launches = _check_counts(per_step, steps_run)
+        out[mode] = {"ms_per_step": res["median_s"] * 1e3, "frames_per_s": res["frames_per_sec"],
+                     "flops_per_step": res["flops_per_step"], "mfu": res.get("mfu"),
+                     "bf16_peak_tflops_assumed": res.get("bf16_peak_tflops_assumed"),
+                     "steps_run": steps_run, "launches": launches, "result": res}
+    out["train_step"]["train_phase_eager_ms"] = train_eager_ms
+    scan_ms = out["train_step_scan"]["ms_per_step"]
+    out["train_step_scan"]["scan_phase_graph_ms"] = scan_graph_ms
+    if not abs(scan_ms - scan_graph_ms) <= 0.15 * scan_graph_ms:
+        raise AssertionError(f"bench train_step_scan {scan_ms} ms/step, scan phase "
+                             f"{scan_graph_ms} ms/step")
+
+    # (3) --trace-dir: the four kernels of the step in the Chrome trace.
+    tmp = tempfile.TemporaryDirectory(prefix="trace-")
+    try:
+        _bench(common + ["--mode", "train_step", "--steps", "1", "--trace-dir", tmp.name])
+        path = os.path.join(tmp.name, "trace.json")
+        with open(path) as f:
+            text = f.read()
+        names = [WARP_KERNEL_NAMES[k] for k in per_step]
+        found = {n: text.count(n) for n in names}
+        if not all(found.values()):
+            raise AssertionError(f"trace {path}: {found}")
+        out["trace"] = {"bytes": len(text), "kernel_mentions": found}
+    finally:
+        tmp.cleanup()
+
+    # (4) Inference and the warp: frames/s.
+    for name, argv in (("depth_infer_bf16", ["--mode", "depth_infer"]),
+                       ("depth_infer_int8", ["--mode", "depth_infer", "--int8"]),
+                       ("odom_infer", ["--mode", "odom_infer"]),
+                       ("warp", ["--mode", "warp"])):
+        res = _bench(common + argv + ["--steps", str(2 * BENCH_STEPS)])
+        out[name] = {"ms_per_batch": res["median_s"] * 1e3, "frames_per_s": res["frames_per_sec"]}
+
+    # (5) The layer tables: a subset of DepthNet's, OdomNet's and FeatNet's whole.
+    t0 = time.perf_counter()
+    depth = profiling.depth_layer_table(BATCH, H, W, BENCH_STEPS, variant,
+                                        layers=DEPTH_LAYER_SUBSET, device=dev)
+    names = [b for b in profiling.depth_layer_order(cfg.model.num_scales)
+             if b in DEPTH_LAYER_SUBSET]
+    out["depth_layers"] = _layer_rows(depth, names)
+    for net, order in (("odom", profiling.odom_layer_order()),
+                       ("feat", profiling.feat_layer_order())):
+        res = _bench(common + ["--mode", f"{net}_layers", "--steps", str(BENCH_STEPS)])
+        out[f"{net}_layers"] = _layer_rows(res, order)
+    out["layer_tables_seconds"] = time.perf_counter() - t0
+
+    # (6) The NHWC warps; (7) the train flags.
+    out["nhwc_warps"] = _nhwc_warps(_f32_config(cfg), dev)
+    out["train_flags"] = _train_flags(variant, cfg)
+    emit(out)
+
+
 def phase_serve(dev):
     import numpy as np
     import torch
@@ -2729,13 +3015,14 @@ def main() -> int:
     rows = phase_kernels(_f32_config(cfg), dev)
     phase_slice("full_feat", dev)
     train_launches, premade_ms = phase_train("full_feat", dev)
-    phase_scan("full_feat", dev, smi)
+    scan = phase_scan("full_feat", dev, smi)
     phase_kitti_ckpt("full_feat", dev, smi, premade_ms)
     fixtures = phase_eval("full_feat", dev, smi)
     phase_int8_serving("full_feat", dev, smi, fixtures)
     phase_caffe("full_feat", dev, smi)
     phase_dp("full_feat", dev, smi)
     phase_pretrain_feat("full_feat", dev, smi)
+    phase_bench("full_feat", dev, smi, scan["bf16_premade"]["graph"]["ms_per_step"], premade_ms)
     phase_serve(dev)
 
     summary = []

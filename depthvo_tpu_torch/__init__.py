@@ -12,6 +12,21 @@ unless the caller passes ``device="cpu"``; on the CPU every kernel is
 replaced by its plain PyTorch version.
 """
 
-from depthvo_tpu_torch.api import DepthVO  # noqa: F401
+_API_NAMES = ("predict_depth", "predict_pose", "load_model", "DepthVO")
+__all__ = list(_API_NAMES) + ["zoo"]
 
-__all__ = ["DepthVO"]
+
+def __getattr__(name):
+    # Lazy, as in the reference: `import depthvo_tpu_torch.geometry` stays
+    # cheap (no network is built).
+    if name in _API_NAMES:
+        from depthvo_tpu_torch import api
+
+        return getattr(api, name)
+    if name == "zoo":
+        # importlib, not `from depthvo_tpu_torch import zoo`: the
+        # from-import re-enters this __getattr__ mid-import.
+        import importlib
+
+        return importlib.import_module("depthvo_tpu_torch.zoo")
+    raise AttributeError(f"module 'depthvo_tpu_torch' has no attribute {name!r}")

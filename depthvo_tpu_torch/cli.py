@@ -1,14 +1,15 @@
 """Command line of the port (counterpart of ``depthvo_tpu/cli.py``).
 
-Fifteen subcommands are ported so far::
+Every subcommand of the reference is ported::
 
     python -m depthvo_tpu_torch.cli train --variant full_feat --steps 1000 \\
         [--kitti-root R --drives D1,D2 | --kitti-odom-root R --sequences 00,01
          | --train-list L [--kitti-root R]] [--native-ring 1|0] [--config F] \\
         [--checkpoint-dir C] [--init-from C1] [--init-feat-from C2] \\
         [--batch-size 4] [--height H --width W] [--seed 0] [--device cuda|cpu] \\
-        [--log-every N] [--log-jsonl F] [--eval-every N --eval-steps 10 --val-list L] \\
-        [--solver solver.prototxt] [--weights [net=]F.caffemodel ...]
+        [--log-every N] [--log-jsonl F] [--tensorboard D] [--eval-every N --eval-steps 10 \\
+        --val-list L] [--solver solver.prototxt] [--weights [net=]F.caffemodel ...] \\
+        [--iter-size K] [--remat] [--debug-nans] [--steps-per-call K]
     python -m depthvo_tpu_torch.cli test [--checkpoint-dir C] [--val-list L] \\
         [--variant full_feat] --iterations 10 [--device cuda|cpu]
     python -m depthvo_tpu_torch.cli pretrain-feat [--kitti-root R --drives D | --train-list L] \\
@@ -37,6 +38,10 @@ Fifteen subcommands are ported so far::
         --output M
     python -m depthvo_tpu_torch.cli net-info P [--json J]
     python -m depthvo_tpu_torch.cli zoo [--check EVAL_JSON [--int8] [--trust-split]]
+    python -m depthvo_tpu_torch.cli bench --mode depth_infer|train_step|train_step_scan|\\
+        odom_infer|warp|depth_layers|odom_layers|feat_layers [--steps 50] [--int8] \\
+        [--remat] [--trace-dir D] [--device cuda|cpu]
+    python -m depthvo_tpu_torch.cli device-query
 
 ``train`` (the ``caffe train`` analog) runs ``fit`` on a KITTI raw tree,
 a KITTI odometry tree, a prepared sample list or, with none of them,
@@ -62,7 +67,9 @@ artifact and its JSON sidecar. ``train --solver`` overlays a Caffe
 solver.prototxt (its net prototxt is recognised, not executed) and
 ``--weights`` seats ``.caffemodel`` files before training; the Caffe
 weight tools (``import-caffemodel``, ``export-caffemodel``, ``convert``,
-``make-name-map``, ``net-info``, ``zoo``) work on the host.
+``make-name-map``, ``net-info``, ``zoo``) work on the host. ``bench``
+times a hot path or prints a network's per-layer table
+(``utils/profiling.py``), and ``device-query`` lists the CUDA devices.
 The commands that run a network run on the GPU and refuse to run
 without one unless ``--device cpu`` is given.
 
@@ -873,6 +880,13 @@ def _train(args, device, mesh) -> int:
         if loss_fields:
             cfg = dataclasses.replace(cfg, **loss_fields)
             print(f"net: loss weights from the net prototxt: {loss_fields}")
+    # Explicit flags win over the solver overlay, as in the reference;
+    # before --weights makes its state, whose solver state iter_size shapes.
+    if args.iter_size > 1:
+        cfg = dataclasses.replace(
+            cfg, optim=dataclasses.replace(cfg.optim, iter_size=args.iter_size))
+    if args.remat:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True))
     if args.log_every is not None:
         cfg = dataclasses.replace(cfg, log_every=args.log_every)
     if args.init_from:
@@ -926,14 +940,15 @@ def _train(args, device, mesh) -> int:
         print(f"validation: {what} every {args.eval_every} steps")
     # The coordinator alone logs: the metrics are the global batch's on
     # every rank.
-    log = MetricLogger(jsonl_path=args.log_jsonl) if mesh is None or mesh.rank == 0 else None
+    log = (MetricLogger(jsonl_path=args.log_jsonl, tensorboard_dir=args.tensorboard)
+           if mesh is None or mesh.rank == 0 else None)
     try:
         train_loop.fit(
             cfg, it, args.steps, mesh=mesh, checkpoint_dir=args.checkpoint_dir, log_fn=log,
             state=init_state, steps_per_call=args.steps_per_call,
             eval_iter=eval_it, eval_every=args.eval_every, eval_steps=args.eval_steps,
             sigint_effect=args.sigint_effect, sighup_effect=args.sighup_effect,
-            device=device,
+            device=device, debug_nans=args.debug_nans,
         )
     finally:
         if log is not None:
@@ -1035,6 +1050,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", default=None,
                    help="experiment-config JSON (as train saves beside its checkpoints); "
                         "supersedes --variant/--height/--width/--batch-size")
+    p.add_argument("--iter-size", type=int, default=1,
+                   help="Caffe solver iter_size: accumulate gradients over "
+                        "k micro-batches per optimizer update")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize DepthNet stages (memory-for-FLOPs; "
+                        "raises the per-chip batch ceiling)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights and of the data order")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -1061,6 +1082,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the loss terms every N steps (default: the config's)")
     p.add_argument("--log-jsonl", default=None,
                    help="also append per-step metrics as JSONL here")
+    p.add_argument("--tensorboard", default=None,
+                   help="also write TensorBoard scalar events here")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="after each call of --steps-per-call steps (not per operation: "
+                        "the step may be a CUDA graph), check that the call's loss "
+                        "terms and every parameter and BatchNorm statistic are finite, "
+                        "and raise FloatingPointError naming the step and the first "
+                        "non-finite one before that state is logged or checkpointed")
     p.add_argument("--eval-every", type=int, default=0,
                    help="validate every N steps (caffe test_interval; 0 = never)")
     p.add_argument("--eval-steps", type=int, default=10,
@@ -1295,7 +1324,95 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory of representative frames: calibrate and export "
                         "the w8a8 int8 program instead of bf16/f32")
     p.set_defaults(fn=cmd_export_serving)
+
+    p = sub.add_parser("device-query",
+                       help="the CUDA devices and their memory (reference: caffe device_query)")
+    p.set_defaults(fn=cmd_device_query)
+
+    p = sub.add_parser("bench", help="throughput benchmark (reference: caffe time)")
+    _add_common(p)
+    p.add_argument("--mode", default="depth_infer",
+                   choices=["depth_infer", "train_step", "train_step_scan", "odom_infer",
+                            "warp", *_LAYER_MODES])
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler Chrome trace (trace.json) here")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize DepthNet stages (memory-for-FLOPs; "
+                        "raises the per-chip batch ceiling)")
+    p.add_argument("--int8", action="store_true",
+                   help="depth_infer only: the w8a8 int8 serving path (calibrates on "
+                        "the benchmark batch)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_bench)
     return parser
+
+
+def cmd_device_query(args) -> int:
+    """`caffe device_query` analog: each CUDA device's name, capability,
+    SM count and memory, the caching allocator's allocated, reserved and
+    peak bytes on it, and this process's rank and world size; the same as
+    one JSON line. Without a CUDA device it says so and returns 1."""
+    if not torch.cuda.is_available():
+        print("device-query: no CUDA device is available")
+        return 1
+    n = torch.cuda.device_count()
+    rank, world = pdist.process_index(), pdist.process_count()
+    print(f"backend: cuda  devices: {n}  process: {rank}/{world}  "
+          f"torch {torch.__version__} (CUDA {torch.version.cuda})")
+    devices = []
+    for i in range(n):
+        prop = torch.cuda.get_device_properties(i)
+        d = {"index": i, "name": prop.name, "capability": [prop.major, prop.minor],
+             "sm_count": prop.multi_processor_count, "total_memory": prop.total_memory,
+             "allocated": torch.cuda.memory_allocated(i),
+             "reserved": torch.cuda.memory_reserved(i),
+             "peak_allocated": torch.cuda.max_memory_allocated(i)}
+        devices.append(d)
+        print(f"[{i}] {d['name']} (capability {prop.major}.{prop.minor}, "
+              f"{d['sm_count']} SMs, {d['total_memory'] / 2**30:.2f} GiB)")
+        print(f"     allocated {d['allocated'] / 2**30:.3f} GiB, reserved "
+              f"{d['reserved'] / 2**30:.3f} GiB, peak {d['peak_allocated'] / 2**30:.3f} GiB")
+    print(json.dumps({"devices": devices, "rank": rank, "world_size": world}))
+    return 0
+
+
+_LAYER_MODES = ("depth_layers", "odom_layers", "feat_layers")
+
+
+def cmd_bench(args) -> int:
+    """`caffe time` analog: the throughput of a hot path
+    (``utils.profiling.run_benchmark``) or a network's per-layer forward
+    and backward table (``--mode *_layers``), as one JSON line."""
+    from depthvo_tpu_torch.utils.profiling import depth_layer_table, maybe_trace, run_benchmark
+
+    if args.mode in _LAYER_MODES:
+        with maybe_trace(args.trace_dir):
+            result = depth_layer_table(
+                batch_size=args.batch_size, height=args.height or 160,
+                width=args.width or 608, steps=args.steps, variant=args.variant,
+                net=args.mode.split("_")[0], device=args.device)
+        print(f"{'layer':16s} {'forward':>10s} {'backward':>10s}"
+              f" {'fwd cum':>10s} {'bwd cum':>10s}")
+        for row in result["rows"]:
+            bwd = row.get("backward_ms")
+            bwd_c = row.get("bwd_cumulative_ms")
+            print(f"{row['layer']:16s} {row['forward_ms']:8.3f} ms"
+                  f" {bwd if bwd is not None else float('nan'):8.3f} ms"
+                  f" {row['fwd_cumulative_ms']:10.3f}"
+                  f" {bwd_c if bwd_c is not None else float('nan'):10.3f}")
+        print(json.dumps(result))
+        return 0
+    if args.int8 and args.mode != "depth_infer":
+        print(f"--int8 applies to --mode depth_infer only (got {args.mode}); refusing "
+              "to print an f32 number under an int8 flag")
+        return 2
+    result = run_benchmark(
+        mode=args.mode, batch_size=args.batch_size, height=args.height or 160,
+        width=args.width or 608, steps=args.steps, trace_dir=args.trace_dir,
+        variant=args.variant, remat=args.remat, int8=args.int8, device=args.device)
+    print(json.dumps(result))
+    return 0
 
 
 _COMMANDS = {"train": _train, "test": _test}

@@ -23,6 +23,17 @@ from depthvo_tpu_torch.geometry.se3 import as_real
 MIN_DEPTH = 1e-3
 
 
+def intrinsics_matrix(fx, fy, cx, cy) -> torch.Tensor:
+    """A (..., 3, 3) float32 intrinsics matrix from scalars or batched
+    tensors (broadcast together)."""
+    fx, fy, cx, cy = torch.broadcast_tensors(
+        *(torch.as_tensor(a, dtype=torch.float32) for a in (fx, fy, cx, cy)))
+    z = torch.zeros_like(fx)
+    o = torch.ones_like(fx)
+    return torch.stack([torch.stack([fx, z, cx], -1), torch.stack([z, fy, cy], -1),
+                        torch.stack([z, z, o], -1)], -2)
+
+
 def scale_intrinsics(K: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     """Rescale intrinsics for an image resized by (sx, sy) = (W'/W, H'/H).
 

@@ -1,6 +1,7 @@
-"""Photometric reconstruction losses over (B, C, H, W) tensors
-(counterpart of the ``_chw`` functions of
-``depthvo_tpu/losses/photometric.py``).
+"""Photometric reconstruction losses (counterpart of
+``depthvo_tpu/losses/photometric.py``), computed over (B, C, H, W)
+tensors; :func:`masked_l1`, :func:`ssim` and :func:`photometric_loss` are
+the reference's (B, H, W, C) surface, transposed into the same functions.
 
 Masked L1 between the warped source and the target, normalised by the
 valid count; an optional SSIM term (``ssim_weight=0``, the default, is
@@ -78,3 +79,26 @@ def photometric_loss_chw(warped: torch.Tensor, target: torch.Tensor,
     n = torch.sum(m) if counts is None else counts[1]
     dssim = torch.sum((1.0 - s) * 0.5 * m) / (n * s.shape[1] + 1e-6)
     return (1.0 - ssim_weight) * l1 + ssim_weight * dssim
+
+
+def _chw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`masked_l1_chw` over (B, H, W, C) tensors with a (B, H, W) mask."""
+    return masked_l1_chw(_chw(pred), _chw(target), mask)
+
+
+def ssim(x: torch.Tensor, y: torch.Tensor, c1: float = 0.01**2,
+         c2: float = 0.03**2) -> torch.Tensor:
+    """:func:`ssim_chw` over (B, H, W, C) tensors: (B, H-2, W-2, C)."""
+    return ssim_chw(_chw(x), _chw(y), c1, c2).permute(0, 2, 3, 1)
+
+
+def photometric_loss(warped: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
+                     ssim_weight: float = 0.0) -> torch.Tensor:
+    """:func:`photometric_loss_chw` over (B, H, W, C) tensors with a
+    (B, H, W) mask: ``ssim_weight=0`` is the reference's pure L1,
+    ``ssim_weight=a`` scores ``(1-a)*L1 + a*(1-SSIM)/2``."""
+    return photometric_loss_chw(_chw(warped), _chw(target), valid, ssim_weight)

@@ -228,3 +228,9 @@ class DepthNet(nn.Module):
                 if i in self.heads:
                     disps.append(self._disp(i, x))
         return disps
+
+    def single_scale(self, x: torch.Tensor) -> torch.Tensor:
+        """Finest-scale inverse depth only: (B, H, W, 1). The module's
+        mode (``train()`` / ``eval()``) stands in for the reference's
+        ``train`` argument."""
+        return self(x)[-1]

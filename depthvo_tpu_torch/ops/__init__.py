@@ -12,6 +12,13 @@
   the taps from the saved source, with the reference's adaptive vertical
   window.
 * ``stereo_warp_chw`` / ``frozen_warp_chw`` - the same on one scale.
+* ``stereo_warp`` / ``frozen_warp`` - the reference's (B, H, W, C)
+  surface, transposed into the CHW functions; ``stereo_warp`` keeps the
+  source differentiable (on the card its backward launches
+  ``stereo_bwd_src`` too).
+* ``fused_warp`` - the general warp with a differentiated source: the
+  plain ``geometry.warp.inverse_warp`` on both devices, as in the
+  reference, whose TPU kernels do not cover this case.
 
 Dispatch is on the tensor's device (``warp_kernels``): CPU tensors take
 the plain PyTorch versions, CUDA tensors the kernels, never both.
@@ -128,3 +135,59 @@ def stereo_warp_chw(src_chw, depth, fx_baseline, dmax: int = 128):
 def frozen_warp_chw(src_chw, depth, T, K, pad_v: int | None = None):
     """:func:`frozen_warp_pyramid_chw` on one scale: (warped, valid)."""
     return frozen_warp_pyramid_chw([src_chw], [depth], T, [K], pad_v)[0]()
+
+
+STEREO_DMAX = 128  # the reference kernel's default disparity bound (pixels)
+
+
+def _dispatch(x, use_pallas: bool | None, what: str) -> None:
+    """``use_pallas`` (the reference's name) asks for the CUDA kernels
+    (True) or their plain versions (False); None takes what the tensor's
+    device runs. The kernels run on CUDA tensors and the plain versions on
+    CPU tensors, never the other way round, so a request the tensor's
+    device cannot serve raises."""
+    on_cuda = x.device.type == "cuda"
+    if use_pallas is None or bool(use_pallas) == on_cuda:
+        return
+    if use_pallas:
+        raise ValueError(f"{what}(use_pallas=True) runs the CUDA kernels; the tensor is on "
+                         f"{x.device} (pass use_pallas=None for the plain versions there)")
+    raise ValueError(f"{what}(use_pallas=False) runs the plain versions, which take CPU "
+                     f"tensors; this one is on {x.device} (move it with .cpu(), or pass "
+                     "use_pallas=None for the kernels)")
+
+
+def stereo_warp(src, depth, fx_baseline, use_pallas: bool | None = None,
+                dmax: int | None = None):
+    """Rectified-stereo inverse warp of a (B, H, W, C) ``src`` (sample at
+    x - fx*b/depth): :func:`stereo_warp_chw` on its transpose.
+
+    ``depth`` (B, H, W) or (B, H, W, 1); ``fx_baseline`` a scalar or (B,).
+    ``dmax`` is the static disparity bound in pixels; ``None`` takes the
+    reference kernel's default (:data:`STEREO_DMAX`), on both devices, as
+    the reference's kernel path does. ``src`` stays differentiable.
+    Returns (warped (B, H, W, C) float32, valid (B, H, W))."""
+    _dispatch(src, use_pallas, "stereo_warp")
+    warped, valid = stereo_warp_chw(src.permute(0, 3, 1, 2), depth, fx_baseline,
+                                    STEREO_DMAX if dmax is None else dmax)
+    return warped.permute(0, 2, 3, 1), valid
+
+
+def frozen_warp(src, depth, T, K, use_pallas: bool | None = None, pad_v: int | None = None):
+    """General inverse warp of a NON-differentiated (B, H, W, C) ``src``:
+    :func:`frozen_warp_chw` on its transpose, with the reference's
+    adaptive vertical window (:func:`kernel_pad_v`). Gradients reach
+    depth, T and K; none reaches ``src``. Returns (warped (B, H, W, C)
+    float32, valid (B, H, W))."""
+    _dispatch(src, use_pallas, "frozen_warp")
+    warped, valid = frozen_warp_chw(src.permute(0, 3, 1, 2), depth, T, K, pad_v)
+    return warped.permute(0, 2, 3, 1), valid
+
+
+def fused_warp(src, depth, T, K, use_pallas: bool | None = None):
+    """General inverse warp with a differentiated (B, H, W, C) source:
+    ``geometry.warp.inverse_warp`` on either device. ``use_pallas`` is
+    accepted for API stability, as in the reference; no kernel covers
+    this case."""
+    del use_pallas
+    return geo_warp.inverse_warp(src, depth, T, K)

@@ -18,6 +18,12 @@ Here a mesh is one of two things:
 ``(dcn, data)`` keeps the reference's shape and divisibility errors; the
 reduction runs over every rank either way (NCCL picks its own hierarchy
 across nodes), the same function as the flat mesh.
+
+:func:`shard_batch` / :func:`shard_stacked_batch` place a global host
+batch as the reference's do, by its shard-or-replicate predicate: each
+rank keeps its rows (``distributed.local_slice``) on its device. The
+reference's ``batch_sharding`` and ``replicated`` return JAX
+``NamedSharding``s; they have no torch counterpart here.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from depthvo_tpu_torch.parallel.distributed import local_slice
 from depthvo_tpu_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
@@ -163,3 +170,42 @@ def replicate(state, mesh: Mesh):
     for t in tensors:
         dist.broadcast(t, src=mesh.ranks[0], group=mesh.group)
     return state
+
+
+def num_processes(mesh: Mesh) -> int:
+    """How many OS processes own this mesh's devices: one per rank in a
+    group, 1 for the replicas of one process."""
+    return mesh.size if mesh.group is not None else 1
+
+
+def _rows(batch: Any, mesh: Mesh, axis: int) -> dict:
+    """This rank's rows of a global host batch along ``axis``, on its
+    device: leaves with at least ``axis + 1`` dimensions go through
+    ``local_slice`` along ``axis`` (its predicate and its errors), the
+    others pass whole (replicated)."""
+    rank, n = (mesh.rank, mesh.size) if mesh.group is not None else (0, 1)
+    cut = {k: np.moveaxis(np.asarray(v), axis, 0) for k, v in batch.items()
+           if np.ndim(v) > axis}
+    cut = local_slice(cut, rank, n, mesh.size)
+    device = mesh.local_devices[0]
+    return {k: torch.as_tensor(np.ascontiguousarray(
+                np.moveaxis(cut[k], 0, axis) if k in cut else np.asarray(v))).to(device)
+            for k, v in batch.items()}
+
+
+def shard_batch(batch: Any, mesh: Mesh) -> dict:
+    """A global host batch (dict of numpy arrays) placed on the mesh, batch
+    axis sharded: this rank's rows of each leaf whose leading axis
+    divides the mesh, scalars whole, as tensors on this rank's device. A
+    batched leaf whose leading axis does not divide a mesh of ranks
+    raises, as the reference's one-device-per-process layout does
+    (``distributed.local_slice``). A mesh of one process's replicas holds
+    the whole batch on its first device."""
+    return _rows(batch, mesh, 0)
+
+
+def shard_stacked_batch(batch: Any, mesh: Mesh) -> dict:
+    """:func:`shard_batch` of a [K, batch, ...] stacked batch (several
+    steps per call): the per-step batch axis (axis 1) is the one cut, the
+    step axis stays whole; leaves without an axis 1 are replicated."""
+    return _rows(batch, mesh, 1)

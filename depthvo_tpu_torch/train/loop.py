@@ -724,6 +724,7 @@ def fit(
     sigint_effect: str = "none",
     sighup_effect: str = "none",
     device: str | torch.device | None = None,
+    debug_nans: bool = False,
 ) -> TrainState:
     """Host training loop, the rebuild of ``Solver::Solve``; the
     reference's parameters in its order, then ``device``.
@@ -750,6 +751,18 @@ def fit(
     terms averaged over ``eval_steps`` batches, logged under ``val/``.
     ``sigint_effect`` / ``sighup_effect`` are :class:`SolverSignals`'
     actions.
+
+    ``debug_nans`` checks, after each call of ``steps_per_call`` steps and
+    before that state is logged, validated or snapshotted, that the call's
+    metrics and every parameter and BatchNorm statistic are finite: one
+    device reduction and one host read per call (the reference's
+    ``jax_debug_nans`` stops at the first non-finite operation; a CUDA
+    graph cannot host anomaly mode, so the port checks per call, not per
+    operation). On failure it raises ``FloatingPointError`` naming the
+    call's last step and the first non-finite metric or state tensor; no
+    checkpoint of that state is written. Under a mesh the metrics are the
+    global batch's and the state is replicated, so every rank raises at
+    the same step.
 
     ``steps_per_call`` = K > 1 runs :func:`make_scan_train_step` (on a
     GPU, a CUDA graph of the step replayed per step) on stacks of K
@@ -811,6 +824,7 @@ def fit(
     if prefetch > 0:
         batches = prefetch_to_device(source, dev, buffer_size=prefetch)
 
+    check_finite = _finite_check(state) if debug_nans else None
     steady_t0 = None
     steady_base = state.step
     signals = SolverSignals(sigint=sigint_effect, sighup=sighup_effect)
@@ -834,6 +848,8 @@ def fit(
                         break
                 state, metrics = step_fn(state, next(batches))
                 i = state.step
+                if check_finite is not None:
+                    check_finite(metrics, i - 1)
                 if steady_t0 is None:
                     float(metrics["loss/total"])  # waits for the first step
                     steady_t0 = time.perf_counter()
@@ -856,6 +872,30 @@ def fit(
         if batches is not source:
             batches.close()  # stops the producer thread
     return state
+
+
+def _finite_check(state: TrainState) -> Callable[[Dict[str, torch.Tensor], int], None]:
+    """``check(metrics, last)`` for ``fit(debug_nans=True)``: raises
+    ``FloatingPointError`` unless the metrics and every parameter and
+    floating buffer (the BatchNorm statistics) of ``state``'s networks are
+    finite, naming step ``last`` and the first tensor that is not. One flag
+    per tensor on the device, stacked, then one host read."""
+    named = list(param_tree(state.models).items())
+    named += [(f"{net_name}.{k}", b) for net_name, net in zip(Models._fields, state.models)
+              if net is not None for k, b in net.named_buffers() if b.is_floating_point()]
+
+    def check(metrics: Dict[str, torch.Tensor], last: int) -> None:
+        leaves = list(metrics.items()) + named
+        flags = torch.stack([torch.isfinite(t.detach()).all() for _, t in leaves]).cpu()
+        if not bool(flags.all()):
+            bad = next(name for (name, _), ok in zip(leaves, flags.tolist()) if not ok)
+            kind = "metric" if bad in metrics else "state tensor"
+            raise FloatingPointError(
+                f"--debug-nans: non-finite {kind} {bad!r} after step {last} (checked the "
+                "call's metrics and every parameter and BatchNorm statistic; this state "
+                "is not checkpointed)")
+
+    return check
 
 
 _ACTIONS = (None, "snapshot", "stop")  # stop outranks snapshot

@@ -24,16 +24,29 @@ at that peak by the line of this package that allocated them (with
 K > 1 instead: the peak allocated over the first call, which captures
 the graph, and the bytes the allocator still holds once its cache is
 emptied, the graph's private pool included). It needs a GPU.
+
+The benchmark harness (the reference's ``caffe time`` rebuild, the
+counterpart of ``depthvo_tpu/utils/profiling.py``) is here too:
+:func:`run_benchmark` times a hot path (``cli bench --mode ...``),
+:func:`depth_layer_table` gives the per-layer forward and backward table
+of a network, :func:`time_fn` is their host-clock timer and
+:func:`device_ms` / :func:`graph_replay_ms` the CUDA-graph replay timer,
+and :func:`maybe_trace` writes a ``torch.profiler`` Chrome trace.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
 import json
+import os
+import statistics
 import time
-from typing import Dict
+from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from depthvo_tpu_torch import configs
@@ -41,6 +54,7 @@ from depthvo_tpu_torch.data.synthetic import SyntheticScenes
 from depthvo_tpu_torch.ops import warp_kernels
 from depthvo_tpu_torch.train import loop
 from depthvo_tpu_torch.train.state import build_models, create_state, init_params, load_params
+from depthvo_tpu_torch.utils.device import resolve_device
 
 WARP_KERNELS = ("stereo_fwd_pyramid_kernel", "stereo_bwd_u_pyramid_kernel",
                 "stereo_bwd_src_kernel", "gen_fwd_pyramid_kernel", "gen_bwd_uv_kernel")
@@ -230,6 +244,432 @@ def profile(mode: str, variant: str, batches: int = 5, batch_size: int = 4,
     out["memory"] = {"max_memory_allocated": peak,
                      "reserved_after_empty_cache": torch.cuda.memory_reserved()}
     return out
+
+
+# --------------------------------------------------------------------------
+# The benchmark harness (``cli bench``).
+# --------------------------------------------------------------------------
+
+# Dense bf16 peak of a card (TFLOP/s, without sparsity, NVIDIA's data
+# sheet) by the prefix of ``torch.cuda.get_device_name``, for MFU. A card
+# not listed reports no MFU rather than one against another card's peak.
+_BF16_PEAK_TFLOPS = {
+    "NVIDIA H100 80GB HBM3": 989.0,  # H100 SXM at its 700 W limit
+}
+_TIME_KEYS = ("mean_s", "median_s", "min_s", "p95_s")
+
+
+def _bf16_peak_tflops(device_name: str) -> float | None:
+    return next((peak for prefix, peak in _BF16_PEAK_TFLOPS.items()
+                 if device_name.startswith(prefix)), None)
+
+
+def _fence() -> None:
+    """Wait for the card's queued work (a no-op where CUDA is not in use):
+    PyTorch returns before the device finishes."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _stats(per_call_s, steps: int) -> Dict[str, float]:
+    arr = np.asarray(per_call_s, dtype=np.float64)
+    return {
+        "mean_s": float(arr.mean()),
+        "median_s": float(np.median(arr)),
+        # The minimum: the lowest-noise estimator for repeated identical
+        # device work (timing noise only adds), which the layer table uses.
+        "min_s": float(arr.min()),
+        "p95_s": float(np.percentile(arr, 95)),
+        "steps": steps,
+    }
+
+
+def time_fn(fn: Callable[[], Any], steps: int = 50, warmup: int = 5,
+            chunk: int = 10) -> Dict[str, float]:
+    """Steady-state wall time per call: chunks of ``chunk`` back-to-back
+    calls, each chunk ending in one fence (``torch.cuda.synchronize()``;
+    the reference fetches a leaf to the host), after ``warmup`` calls.
+    Returns mean/median/min/p95 seconds per call over the chunks."""
+    for _ in range(warmup):
+        fn()
+    _fence()
+    chunk_times = []
+    done = 0
+    while done < steps:
+        n = min(chunk, steps - done)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        _fence()
+        chunk_times.append((time.perf_counter() - t0) / n)
+        done += n
+    return _stats(chunk_times, steps)
+
+
+def graph_replay_ms(fn: Callable[[], Any], runs: int = 25, per_run: int = 10) -> list:
+    """Device time of one ``fn()`` call in each of ``runs`` replays:
+    ``per_run`` calls are captured in a CUDA graph (after three calls on a
+    side stream, which set cuDNN, cuBLAS and the allocator up outside the
+    capture) and each replay is timed with CUDA events, so host launch
+    overhead stays out of the number. Milliseconds per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_run):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_run)
+    del graph
+    return times
+
+
+def device_ms(fn: Callable[[], Any], runs: int = 25, per_run: int = 10) -> float:
+    """Median of :func:`graph_replay_ms`: the device time of one call."""
+    return statistics.median(graph_replay_ms(fn, runs, per_run))
+
+
+def _inner_stats(fn: Callable[[], Any], k: int, steps: int, device: torch.device,
+                 warmup: int = 5, chunk: int = 10) -> Dict[str, float]:
+    """Per-call times of ``fn`` run ``k`` times per timed unit (the
+    reference's ``k`` iterations inside one compiled scan): on the card,
+    ``steps`` replays of a CUDA graph of ``k`` calls (:func:`graph_replay_ms`,
+    device time); on the CPU, :func:`time_fn` of ``k`` calls in a row."""
+    if device.type == "cuda":
+        return _stats([ms / 1e3 for ms in graph_replay_ms(fn, steps, k)], steps)
+    st = time_fn(lambda: [fn() for _ in range(k)], steps=steps, warmup=warmup, chunk=chunk)
+    return {**{key: st[key] / k for key in _TIME_KEYS}, "steps": steps}
+
+
+def depth_layer_order(num_scales: int, n_up: int = 5) -> list:
+    """DepthNet's top-level module boundaries in execution order (the rows
+    of the ``caffe time``-style per-layer table)."""
+    order = ["ConvBlock_0"] + [f"ResNetStage_{i}" for i in range(4)]
+    head = 0
+    for i in range(n_up):
+        order += [f"UpConv_{i}", f"ConvBlock_{i + 1}"]
+        if i - (n_up - num_scales) >= 0:
+            order.append(f"Conv_{head}")
+            head += 1
+    return order
+
+
+def odom_layer_order(n_convs: int = 7, n_fc: int = 3) -> list:
+    """OdomNet's top-level module boundaries in execution order."""
+    return [f"ConvBlock_{i}" for i in range(n_convs)] + [f"Dense_{i}" for i in range(n_fc)]
+
+
+def feat_layer_order(n_convs: int = 3) -> list:
+    """FeatNet's top-level module boundaries in execution order (the
+    dilated conv blocks, then the projection conv)."""
+    return [f"ConvBlock_{i}" for i in range(n_convs)] + ["Conv_0"]
+
+
+class _Boundary(Exception):
+    """Raised by a forward hook at a prefix's last module, carrying its
+    output: the rest of the network never runs."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+
+@contextlib.contextmanager
+def _prefix(net: torch.nn.Module, boundary: str):
+    """Yields ``run(x)``: ``net``'s forward up to and including its
+    top-level module ``boundary``, returning that module's output. The
+    boundary's forward hook, there for the block, raises
+    :class:`_Boundary`, which ``run`` catches, so a CUDA graph can capture
+    the prefix's kernels like any other call."""
+    def hook(module, args, out):
+        raise _Boundary(out)
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        try:
+            net(x)
+        except _Boundary as b:
+            return b.out
+        raise RuntimeError(f"the forward never reached {boundary}")
+
+    handle = getattr(net, boundary).register_forward_hook(hook)
+    try:
+        yield run
+    finally:
+        handle.remove()
+
+
+def depth_layer_table(
+    batch_size: int = 128,
+    height: int = 160,
+    width: int = 608,
+    steps: int = 20,
+    variant: str = "full_feat",
+    include_backward: bool = True,
+    layers: "list | None" = None,
+    net: str = "depth",
+    device: str | torch.device | None = None,
+) -> Dict[str, Any]:
+    """Per-layer forward AND backward time of DepthNet (``net="depth"``),
+    OdomNet (``"odom"``) or FeatNet (``"feat"``): the ``caffe time``
+    table, with the reference's estimator.
+
+    Each top-level module boundary is timed as its own prefix program (a
+    forward hook ends the forward there, :func:`_prefix`), ``K_INNER``
+    calls per timed unit, and a layer's time is the difference of
+    consecutive cumulative times. Backward: the same prefix with the
+    gradient of sum(output**2) with respect to the parameters, minus the
+    forward cumulative. Each cumulative is the minimum over ``steps``
+    units (CUDA-graph replays on the card, :func:`_inner_stats`), and is
+    projected to be monotone (a longer prefix cannot be cheaper, so noise
+    moves into the next row instead of a negative time). The networks run
+    in eval mode with random weights (seed 0) on ``device`` (default
+    ``cuda``; the CPU with ``device="cpu"``)."""
+    dev = resolve_device(device)
+    cfg = getattr(configs, variant)()
+    # The table names the standard module boundaries: the s2d finest stage
+    # computes the same function (the port runs the standard stage anyway).
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, height=height, width=width, s2d_finest=False))
+    models = load_params(build_models(cfg), init_params(cfg, torch.Generator().manual_seed(0)),
+                         dev).train(False)
+    if net == "feat":
+        if models.feat is None:
+            raise ValueError(f"variant {variant!r} has no feature net")
+        the_net, in_ch = models.feat, 3
+        order = feat_layer_order(models.feat.num_convs)
+    elif net == "odom":
+        if models.odom is None:
+            raise ValueError(f"variant {variant!r} has no odometry net")
+        the_net, in_ch = models.odom, 6
+        order = odom_layer_order(models.odom.num_convs, models.odom.num_fc + 1)
+    elif net == "depth":
+        the_net, in_ch = models.depth, 3
+        order = depth_layer_order(cfg.model.num_scales)
+    else:
+        raise ValueError(f"unknown net {net!r} (want 'depth', 'odom', or 'feat')")
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-1, 1, (batch_size, height, width, in_ch)),
+                        dtype=torch.float32, device=dev)
+    if layers is not None:
+        order = [b for b in order if b in set(layers)]
+    params = [p for p in the_net.parameters() if p.requires_grad]
+    K_INNER = 4
+
+    def forward(run):
+        with torch.no_grad():
+            run(x)
+
+    def forward_backward(run):
+        leaf = run(x)
+        loss = torch.sum(torch.square(leaf.float()))
+        torch.autograd.grad(loss, params, allow_unused=True)
+
+    def cum_time(fn) -> float:
+        return _inner_stats(fn, K_INNER, steps, dev, warmup=2, chunk=4)["min_s"]
+
+    rows = []
+    prev_f = prev_b = 0.0
+    for boundary in order:
+        with _prefix(the_net, boundary) as run:
+            cum_f = max(cum_time(lambda: forward(run)), prev_f)
+            row = {
+                "layer": boundary,
+                "forward_ms": round((cum_f - prev_f) * 1e3, 3),
+                "fwd_cumulative_ms": round(cum_f * 1e3, 3),
+            }
+            if include_backward:
+                cum_b = max(cum_time(lambda: forward_backward(run)) - cum_f, prev_b)
+                row["backward_ms"] = round((cum_b - prev_b) * 1e3, 3)
+                row["bwd_cumulative_ms"] = round(cum_b * 1e3, 3)
+                prev_b = cum_b
+        rows.append(row)
+        prev_f = cum_f
+    return {
+        "mode": f"{net}_layers",
+        "batch_size": batch_size,
+        "height": height,
+        "width": width,
+        "backend": dev.type,
+        "estimator": f"min over chunks, {steps} reps, K_inner={K_INNER}",
+        "rows": rows,
+    }
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: str | None):
+    """``torch.profiler`` over the block (the card's kernels too, where
+    there is one), written as a Chrome trace to ``trace_dir/trace.json``;
+    a no-op when ``trace_dir`` is None."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def _flops(fn: Callable[[], Any]) -> float:
+    """The floating-point operations of one ``fn()`` as
+    ``torch.utils.flop_counter.FlopCounterMode`` counts them: convolutions
+    and matrix products (forward and backward), not the warp kernels
+    (launched outside PyTorch's dispatcher) nor elementwise ops."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def run_benchmark(
+    mode: str = "depth_infer",
+    batch_size: int = 4,
+    height: int = 160,
+    width: int = 608,
+    steps: int = 50,
+    trace_dir: str | None = None,
+    variant: str = "full_feat",
+    remat: bool = False,
+    int8: bool = False,
+    device: str | torch.device | None = None,
+) -> Dict[str, Any]:
+    """Benchmark one of the hot paths on ``device`` (default ``cuda``; the
+    CPU with ``device="cpu"``); returns a JSON-able result dict with the
+    reference's keys.
+
+    Modes:
+      depth_infer - the batched DepthNet forward (``int8``: the w8a8
+        program, calibrated on the benchmark batch), ``K_INNER`` = 10
+        forwards per timed unit: on the card a CUDA graph of them, so the
+        time is the device's (the reference runs them in one scan).
+      odom_infer  - the batched OdomNet forward and the exp-map.
+      train_step  - ``make_train_step``, one eager step per call.
+      train_step_scan - ``make_scan_train_step`` with K = 8 steps per call
+        (on the card the step's CUDA graph replayed 8 times); per step.
+      warp        - ``ops.fused_warp`` on (B, H, W, 3) inputs.
+
+    The train modes run ``mesh=None``, the step ``cli train`` runs on one
+    card (a mesh of one would add its collectives), and report
+    ``flops_per_step`` (:func:`_flops` of one step: convolutions and
+    matrix products only) and, on a card of the peak table, ``mfu``
+    against its dense bf16 peak (``bf16_peak_tflops_assumed``). Timing
+    runs under :func:`maybe_trace` with ``trace_dir``.
+    """
+    from depthvo_tpu_torch import ops
+    from depthvo_tpu_torch.api import DepthVO
+    from depthvo_tpu_torch.geometry import se3
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    extra: Dict[str, Any] = {}
+    inner = 1  # calls folded into one timed unit
+
+    def _cfg(**over):
+        cfg = getattr(configs, variant)(**over)
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, height=height, width=width, remat=remat))
+
+    def uniform(lo, hi, shape):
+        return torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float32, device=dev)
+
+    if mode == "depth_infer":
+        model = DepthVO.from_random(_cfg(), device=dev)
+        images = uniform(-1, 1, (batch_size, height, width, 3))
+        if int8:
+            model.calibrate_int8(images)
+            extra["int8"] = True
+        depth_net = model.models.depth
+        inner = 10
+
+        def fn():
+            with torch.no_grad():
+                return depth_net(images)[-1]
+    elif mode == "odom_infer":
+        model = DepthVO.from_random(_cfg(), device=dev)
+        pairs = uniform(-1, 1, (batch_size, height, width, 6))
+
+        def fn():
+            with torch.no_grad():
+                return se3.exp(model.models.odom(pairs))
+    elif mode in ("train_step", "train_step_scan"):
+        cfg = _cfg(batch_size=batch_size)
+        state = create_state(cfg, dev)
+        batch_np = SyntheticScenes(cfg, seed=0, num_scenes=2).batch(batch_size)
+        batch = loop.batch_to_device(batch_np, dev)
+        one_step = loop.make_train_step(cfg, device=dev)
+        # Counted on one real eager step (it also warms the step up).
+        extra["flops_per_step"] = _flops(lambda: one_step(state, batch))
+        if mode == "train_step_scan":
+            K_SCAN = 8
+            stacked = loop.batch_to_device(loop.stack_batches([batch_np] * K_SCAN), dev)
+            scan = loop.make_scan_train_step(cfg, device=dev)
+            inner = K_SCAN
+            extra["steps_per_call"] = K_SCAN
+
+            def fn():
+                return scan(state, stacked)[1]
+        else:
+            def fn():
+                return one_step(state, batch)[1]
+    elif mode == "warp":
+        src = uniform(-1, 1, (batch_size, height, width, 3))
+        depth = uniform(4, 40, (batch_size, height, width))
+        T = torch.eye(4, device=dev).repeat(batch_size, 1, 1)
+        T[:, 0, 3] = -0.54
+        K = torch.tensor([[0.58 * width, 0, width / 2], [0, 1.92 * height, height / 2],
+                          [0, 0, 1]], dtype=torch.float32, device=dev)
+
+        def fn():
+            with torch.no_grad():
+                return ops.fused_warp(src, depth, T, K)
+    else:
+        raise ValueError(f"unknown bench mode {mode!r}")
+
+    with maybe_trace(trace_dir):
+        if mode == "depth_infer":
+            stats = _inner_stats(fn, inner, steps, dev)
+        else:
+            stats = time_fn(fn, steps=steps)
+            if inner != 1:
+                stats.update({k: stats[k] / inner for k in _TIME_KEYS})
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if "flops_per_step" in extra and dev.type == "cuda":
+        peak = _bf16_peak_tflops(name)
+        if peak is not None:
+            extra["mfu"] = round(extra["flops_per_step"] / stats["median_s"] / (peak * 1e12), 4)
+            # The denominator, so the number is never read against another peak.
+            extra["bf16_peak_tflops_assumed"] = peak
+    return {
+        "mode": mode,
+        "variant": variant,
+        "batch_size": batch_size,
+        "height": height,
+        "width": width,
+        "backend": dev.type,
+        "device": name,
+        **stats,
+        **extra,
+        "frames_per_sec": batch_size / stats["median_s"],
+    }
 
 
 def main(argv=None) -> int:

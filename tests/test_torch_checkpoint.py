@@ -422,10 +422,12 @@ def test_remat_raises_until_it_is_ported():
 def test_fit_has_the_reference_signature_then_device():
     ref = list(inspect.signature(jloop.fit).parameters.values())
     mine = list(inspect.signature(tloop.fit).parameters.values())
-    assert [p.name for p in mine] == [p.name for p in ref] + ["device"]
+    # The reference's parameters in order, then the port's own keywords:
+    # the device and the per-call finiteness check of `--debug-nans`.
+    assert [p.name for p in mine] == [p.name for p in ref] + ["device", "debug_nans"]
     for r, m in zip(ref, mine):
         assert m.default == r.default and m.kind == r.kind, m.name
-    assert mine[-1].default is None
+    assert mine[-2].default is None and mine[-1].default is False
     # A mesh is ported (tests/test_torch_parallel.py); what is not a mesh
     # of ranks is refused before anything runs.
     with pytest.raises(TypeError, match="Mesh"):
