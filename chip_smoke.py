@@ -98,7 +98,24 @@ with a nonzero exit code:
              phase's launches per step and logs at steps 7 and 16; the
              ms/step after the first call, also over 65 steps, beside the
              host ring's ms per batch.
-7. kitti_ckpt - the training path users run, in a temporary directory: a
+7. learn   - the port learns (tests/test_metric_learning.py at full width):
+             400 steps of the default (bfloat16) full_feat step at 608x160,
+             batch 4, as 50 calls of K=8 through the CUDA graph, adam at
+             1e-3 with a 10-step warmup, on the fixed batch of
+             ``SyntheticScenes(seed=3, num_scenes=4)`` held on the card;
+             every loss term after 0, 200 and 400 steps; before and after,
+             depth abs_rel (median scaled) and the log-depth correlation
+             against the scenes' true depth and the odometry's translation
+             and rotation errors (``eval.synthetic``, the protocol of
+             benchmarks/feat_ab.py); the median ms/step, the graph's pool
+             and the peak after call 1 and call 50, the warp launches per
+             step, beside the reference's TPU record (a record, not a
+             target). Gates: finite losses, abs_rel falls and ends <= 0.15,
+             log-corr >= 0.90, every scene's translation error <= 20% of
+             its true translation, exactly 1/2/1/4 K1/K2/K4/K5 launches per
+             step, the pool after call 50 equal to the pool after call 1.
+             Then the same run in float32 with TF32 off, recorded beside it.
+8. kitti_ckpt - the training path users run, in a temporary directory: a
              KITTI raw drive (9 frames per camera at 1242x375, PNGs written
              with zlib, calib with P_rect_02/03 and S_rect_02); ``cli train
              --kitti-root ... --native-ring 1 --checkpoint-dir C`` for 2
@@ -118,7 +135,7 @@ with a nonzero exit code:
              the same over 13 steady steps of a 14-step run, the host
              ring's ms per batch, the checkpoint's bytes and its
              save and restore ms, beside the card's name and power limit.
-8. eval    - the eval runner and the rest of DepthNet, in a temporary
+9. eval    - the eval runner and the rest of DepthNet, in a temporary
              directory: a KITTI raw drive of 70 frames at 1242x375 with
              velodyne scans (4000 points each, 5-75 m) and both
              calibration files; ``cli prep-eigen`` writes the ground truth
@@ -150,7 +167,7 @@ with a nonzero exit code:
              BatchNorm statistic, solver tensor and metric bit for bit;
              the bfloat16 batch-4 train step's peak allocated bytes with
              and without ``remat``.
-9. int8_serving - w8a8 serving and the serving export (A.6) at 608x160:
+10. int8_serving - w8a8 serving and the serving export (A.6) at 608x160:
              (1) the int8 convolution (``ops/int8_conv.py``: an int8
              im2col and ``torch._int_mm``, cuBLASLt's int8 GEMM; a library
              call, not a TPU kernel) at every distinct quantized conv shape
@@ -178,14 +195,14 @@ with a nonzero exit code:
              declared, ``_int_mm`` called) and ``cli infer --int8`` (its
              files equal the API calibrated on the same frames) on phase
              eval's tree, which this phase then deletes.
-10. caffe  - the Caffe weight tools (A.7) at 608x160: ``export-caffemodel``
+11. caffe  - the Caffe weight tools (A.7) at 608x160: ``export-caffemodel``
              of each net of a checkpoint, ``import-caffemodel`` of the depth
              file into a fresh checkpoint (every depth tensor equal, and
              ``DepthVO.depth`` on the card bit for bit, float32, TF32 off);
              ``net-info`` of a train graph and ``convert`` (solver + graph +
              the three files) exit 0, with finite depth from the converted
              checkpoint.
-11. dp     - data parallelism (A.8), full_feat 608x160, global batch 4. The
+12. dp     - data parallelism (A.8), full_feat 608x160, global batch 4. The
              machine has one H100, so (1) an NCCL group of one: the mesh
              step against ``mesh=None`` (float32, TF32 off, cuDNN
              deterministic) to the train phase's bars (no full_feat
@@ -206,13 +223,13 @@ with a nonzero exit code:
              path (no process group, 1/2/1/4 launches per step); (4)
              ``predict_depths`` over a mesh of one replica equals
              ``mesh=None`` bit for bit.
-12. pretrain_feat - feature pretraining (A.9) at 608x160, batch 4: the
+13. pretrain_feat - feature pretraining (A.9) at 608x160, batch 4: the
              InfoNCE loss on the card against the CPU on the same weights
              and views (float32, TF32 off, <= 1e-4 relative); ``cli
              pretrain-feat --steps 5`` then ``cli train --init-feat-from``
              for 2 steps: exit 0 and the trained checkpoint's feature net
              is the pretrained one; ms per bfloat16 pretrain step.
-13. bench  - the reference's tooling and surface (A.10-A.13) at 608x160,
+14. bench  - the reference's tooling and surface (A.10-A.13) at 608x160,
              batch 4: ``cli device-query`` (rc 0; name, capability, SM
              count and memory equal ``torch.cuda.get_device_properties``);
              ``cli bench --mode train_step`` and ``train_step_scan`` with
@@ -238,7 +255,7 @@ with a nonzero exit code:
              ``FloatingPointError`` after step 3 with only checkpoint 2
              written; ``--tensorboard`` writes events, or raises the
              reference's ``ModuleNotFoundError`` without the package.
-14. serve  - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
+15. serve  - ``DepthVO.from_random(full_feat())``: depth of a (4,160,608,3)
              uint8 batch and pose of its frame pairs; shapes, finiteness
              and latency.
 
@@ -1222,6 +1239,134 @@ def phase_scan(variant: str, dev, smi: str):
         "host_ring_ms_per_batch": ring_ms,
         "losses": [{k: float(m[k]) for k in m if k.startswith("loss/")} for m in logged]}
     emit(out)
+    return out
+
+
+LEARN_STEPS = 400
+LEARN_MARKS = (0, 200, 400)  # steps after which every loss term is printed
+# The reference's record of the same check on its chip (a TPU, the JAX
+# package, the full model, 400 steps; tests/test_metric_learning.py:10-11).
+TPU_RECORD = {"abs_rel": 0.088, "log_corr": 0.966, "t_err_rel_max": 0.05}
+LEARN_GATES = {"abs_rel_max": 0.15, "log_corr_min": 0.90, "t_err_rel_max": 0.20}
+
+
+def _train_losses(cfg, models, batch) -> dict:
+    """The train-mode loss terms of a copy of ``models`` on ``batch`` (the
+    loss the next train step would take), without touching ``models``."""
+    import copy
+
+    import torch
+
+    from depthvo_tpu_torch.train import loop
+
+    with torch.no_grad():
+        _, metrics = loop.compute_losses(cfg, copy.deepcopy(models).train(), batch, train=True)
+    return {k: float(v) for k, v in metrics.items() if k.startswith("loss/")}
+
+
+def _learn_run(cfg, dev) -> dict:
+    """400 steps of ``cfg`` as calls of K through ``make_scan_train_step``
+    on the fixed batch of ``SyntheticScenes(seed=3, num_scenes=4)`` held
+    on the card, with the launch counts reset just before the calls and
+    read just after. Scored before and after (``eval.synthetic``)."""
+    import copy
+
+    import torch
+
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.eval import synthetic
+    from depthvo_tpu_torch.ops import warp_kernels as wk
+    from depthvo_tpu_torch.train import loop
+    from depthvo_tpu_torch.train.state import create_state
+
+    scenes = SyntheticScenes(cfg, seed=3, num_scenes=4)
+    fixed = scenes.fixed_batch(BATCH)
+    batch = loop.batch_to_device(fixed, dev)
+    stacked = loop.batch_to_device(loop.stack_batches([fixed] * SCAN_K), dev)
+    state = create_state(cfg, dev)
+
+    def scores():
+        return {**synthetic.depth_metrics(state.models, scenes, BATCH),
+                **synthetic.pose_metrics(state.models, scenes, BATCH)}
+
+    before = scores()
+    losses = {0: _train_losses(cfg, state.models, batch)}
+    scan = loop.make_scan_train_step(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wk.reset_launches()
+    ms, memory, held = [], {}, {}
+    calls = LEARN_STEPS // SCAN_K
+    for call in range(1, calls + 1):
+        t0 = time.perf_counter()
+        state, _ = scan(state, stacked)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / SCAN_K)
+        if call in (1, calls):
+            memory[f"after_call_{call}"] = {
+                "graph_pool_bytes": _private_pool_bytes(),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "memory_allocated": torch.cuda.memory_allocated()}
+            torch.cuda.reset_peak_memory_stats()
+        if state.step in LEARN_MARKS[1:-1]:
+            held[state.step] = copy.deepcopy(state.models)  # scored after the run
+    counts = {k: wk.launch_count(k) for k in KERNELS}
+    for step, models in held.items():
+        losses[step] = _train_losses(cfg, models, batch)
+    losses[LEARN_STEPS] = _train_losses(cfg, state.models, batch)
+    return {"losses_after_steps": {str(k): v for k, v in sorted(losses.items())},
+            "step_0": before, f"step_{LEARN_STEPS}": scores(),
+            "ms_per_step_median": statistics.median(ms[1:]), "ms_per_step_first_call": ms[0],
+            "memory": memory, "launches": counts,
+            "launches_per_step": {k: n / LEARN_STEPS for k, n in counts.items()}}
+
+
+def phase_learn(variant: str, dev, smi: str):
+    """The port learns (the reference's tests/test_metric_learning.py at
+    full width on the card): 400 steps of the staged full_feat step at
+    608x160, batch 4, as 50 calls of K=8 through ``make_scan_train_step``
+    (the CUDA graph), adam at 1e-3 with a 10-step warmup, on a fixed batch
+    held on the card (:func:`_learn_run`); the main path on the default
+    (bfloat16) config, gated, then the same run in float32 with TF32 off
+    beside it, recorded (does the precision change what is learned?)."""
+    import torch
+
+    from depthvo_tpu_torch import configs
+
+    cfg = getattr(configs, variant)(batch_size=BATCH)
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, learning_rate=1e-3, warmup_steps=10, total_steps=LEARN_STEPS))
+    out = {"phase": "learn", "config": variant, "hw": [cfg.model.height, cfg.model.width],
+           "batch": BATCH, "steps": LEARN_STEPS, "steps_per_call": SCAN_K,
+           "optim": dataclasses.asdict(cfg.optim), "nvidia_smi": smi,
+           "tpu_record": dict(TPU_RECORD, what="the JAX package on a TPU, full model, 400 "
+                              "steps (tests/test_metric_learning.py:10-11): a record, not "
+                              "a target")}
+    main = _learn_run(cfg, dev)
+    after = main[f"step_{LEARN_STEPS}"]
+    want = {k: float(_train_launches(cfg).get(k, 0)) for k in KERNELS}
+    pools = [m["graph_pool_bytes"] for m in main["memory"].values()]
+    gates = {
+        "losses_finite": all(math.isfinite(v) for m in main["losses_after_steps"].values()
+                             for v in m.values()),
+        "abs_rel_falls": after["abs_rel"] < main["step_0"]["abs_rel"],
+        "abs_rel_max": after["abs_rel"] <= LEARN_GATES["abs_rel_max"],
+        "log_corr_min": after["log_corr"] >= LEARN_GATES["log_corr_min"],
+        "t_err_rel_max": after["t_err_rel_max"] <= LEARN_GATES["t_err_rel_max"],
+        "launches_per_step": main["launches_per_step"] == want,
+        "pool_steady": len(set(pools)) == 1,
+    }
+    out.update({"bfloat16": main, "gates": LEARN_GATES, "gate_results": gates})
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["float32_tf32_off"] = _learn_run(_f32_config(cfg), dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    emit(out)
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase learn: gates {failed} failed")
     return out
 
 
@@ -3016,6 +3161,7 @@ def main() -> int:
     phase_slice("full_feat", dev)
     train_launches, premade_ms = phase_train("full_feat", dev)
     scan = phase_scan("full_feat", dev, smi)
+    phase_learn("full_feat", dev, smi)
     phase_kitti_ckpt("full_feat", dev, smi, premade_ms)
     fixtures = phase_eval("full_feat", dev, smi)
     phase_int8_serving("full_feat", dev, smi, fixtures)

@@ -9,6 +9,9 @@
   truth's size (Pillow's float bilinear resample, without Pillow).
 * ``runner``: the batched inference sweeps and the two evaluations
   (``run_depth_eval``, ``run_odometry_eval``).
+* ``synthetic``: trained nets against the exact depth and poses of
+  synthetic scenes (the reference's ``benchmarks/feat_ab.py`` protocol;
+  ``chip_smoke.py`` phase ``learn``).
 
 None of these modules imports PIL or matplotlib when it is imported.
 """

@@ -19,10 +19,17 @@ Over a data-parallel mesh of ranks the coordinator (rank 0) writes and
 every rank waits for the write (:func:`save` with ``mesh``); every rank
 restores from the shared directory.
 
-The weight readers also take a directory that the JAX package wrote
-(orbax; :mod:`io.orbax_reader`, which needs ``tensorstore``), told apart
-by the files in the step directory. Its solver state is not read, so
-:func:`maybe_restore` refuses such a directory.
+Every reader also takes a directory that the JAX package wrote (orbax;
+:mod:`io.orbax_reader`, which needs ``tensorstore``), told apart by the
+files in the step directory: the weight readers take its parameters and
+BatchNorm statistics, and :func:`maybe_restore` resumes its whole state
+(:func:`io.from_jax.train_state_from_jax`: the solver's moments, counts
+and accumulators, and the step), so a run moves from the reference to the
+port mid-training. The port's snapshots then go into the same directory
+in its own format, beside the reference's steps (which the newest-3 rule
+leaves alone), and the next run resumes from the port's newest.
+``tensorstore`` is needed only to read the reference's directory: on a
+machine without it, resume once where it is installed and :func:`save`.
 """
 
 from __future__ import annotations
@@ -34,8 +41,9 @@ from typing import Dict, List
 
 import torch
 
+from depthvo_tpu_torch.configs.base import ExperimentConfig
 from depthvo_tpu_torch.io import orbax_reader
-from depthvo_tpu_torch.io.from_jax import params_from_jax, seat_state_dict
+from depthvo_tpu_torch.io.from_jax import params_from_jax, seat_state_dict, train_state_from_jax
 from depthvo_tpu_torch.train.state import (
     Models, TrainState, load_state_dict, param_tree, state_dict,
 )
@@ -111,19 +119,30 @@ def _device(state: TrainState) -> torch.device:
     return next(iter(param_tree(state.models).values())).device
 
 
-def maybe_restore(mgr: CheckpointManager, state: TrainState) -> TrainState:
+def maybe_restore(mgr: CheckpointManager, state: TrainState,
+                  config: ExperimentConfig | None = None) -> TrainState:
     """Resume from the newest checkpoint if there is one, else return
-    ``state`` unchanged."""
+    ``state`` unchanged. Every tensor of ``state`` keeps its storage
+    (:func:`train.state.load_state_dict`), so a CUDA graph captured on it
+    stays valid.
+
+    A newest step that the JAX package wrote resumes whole, through
+    :func:`io.from_jax.train_state_from_jax`; that needs ``config``, the
+    run's config (its solver chain gives the state's structure), and
+    ``tensorstore``. A checkpoint whose solver differs (optimizer,
+    iter_size, train_feat) raises ``ValueError`` naming the path."""
     step = mgr.latest_step()
     if step is None:
         return state
     step_dir = mgr.step_dir(step)
     if orbax_reader.is_reference_step(step_dir):
-        raise ValueError(
-            f"{step_dir} is a checkpoint of the JAX package; its solver state "
-            "is not read, so training cannot resume from it. Start from its "
-            "weights with --init-from (train.loop.fit's config.init_from)."
-        )
+        if config is None:
+            raise ValueError(
+                f"{step_dir} is a checkpoint of the JAX package: resuming it needs "
+                "the run's config (maybe_restore(mgr, state, config)), whose solver "
+                "chain gives the solver state's structure")
+        d = train_state_from_jax(orbax_reader.read_tree(step_dir), config, state.models)
+        return load_state_dict(state, d)
     d = torch.load(os.path.join(step_dir, STATE_FILE), map_location=_device(state),
                    weights_only=True)
     return load_state_dict(state, d)

@@ -19,16 +19,24 @@ networks filled, or the load raises.
 :func:`quant_from_jax` carries a calibrated model's ``quant`` collection
 (``.../ConvBlock_k/Conv_0/a_max``) across the same way: a conv's path
 joined with ``.`` names its ``layers.QuantConv``.
+
+:func:`train_state_from_jax` carries a whole saved train state across
+(``io/orbax_reader.read_tree``: ``params``, ``batch_stats``, ``step`` and
+optax's ``opt_state``) as :func:`train.state.state_dict`'s plain data, so
+a run resumes with its solver moments, counts and accumulators
+(:func:`opt_state_from_jax` maps the solver state).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+import dataclasses
+from typing import Any, Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from depthvo_tpu_torch.train.state import Models
+from depthvo_tpu_torch.configs.base import ExperimentConfig
+from depthvo_tpu_torch.train.state import Models, make_optimizer, param_tree
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -139,3 +147,199 @@ def load_jax_params(models: Models, params: Mapping[str, Any],
         if net is not None:
             seat_state_dict(net, name, converted[name])
     return models
+
+
+# --------------------------------------------------------------------------
+# The solver state (optax's opt_state) and the whole train state.
+# --------------------------------------------------------------------------
+
+NETS = ("depth", "odom", "feat")
+
+# The leaves optax's chain holds per solver (under ``make_optimizer``'s
+# train label), in its order: one count per count-keeping transform and
+# one per-parameter tree per moment. The port's chain
+# (``train/state.py::make_optimizer``) holds the same in the same order.
+SOLVER_LEAVES = {
+    "adam": ("count", "mu", "nu", "count"),  # scale_by_adam, then the schedule
+    "sgd": ("trace", "count"),
+    "nesterov": ("trace", "count"),
+    "adagrad": ("sum_of_squares", "count"),
+    "rmsprop": ("nu", "count"),
+    "adadelta": ("e_g", "e_x", "count"),
+}
+_MULTI_STEPS = ("mini_step", "gradient_step", "inner_opt_state", "acc_grads", "skip_state")
+
+
+def _where(path: Sequence[str]) -> str:
+    return "/".join(path)
+
+
+def _is_param_tree(node: Any) -> bool:
+    return isinstance(node, Mapping) and bool(node) and set(node) <= set(NETS)
+
+
+def _slots(node: Any, path: Tuple[str, ...]) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """The reference's state leaves in orbax's order: each per-parameter
+    tree whole, each array, and nothing for an empty state (``None``)."""
+    if node is None:
+        return
+    if _is_param_tree(node) or not isinstance(node, Mapping):
+        yield path, node
+        return
+    for k, v in node.items():
+        yield from _slots(v, path + (str(k),))
+
+
+def _count(x: Any, path: Tuple[str, ...]) -> int:
+    x = np.asarray(x)
+    if x.shape != () or x.dtype.kind not in "iu":
+        raise ValueError(f"{_where(path)}: a count must be an integer scalar, got "
+                         f"{x.dtype} {x.shape}")
+    return int(x)
+
+
+def _moments(tree: Any, path: Tuple[str, ...], keys: Sequence[str]) -> List[torch.Tensor]:
+    """One per-parameter tree of the reference -> the port's tensors in
+    ``keys`` order, each through its parameter's layout transform. A leaf
+    saved without data must be a parameter the solver does not see (a
+    frozen network's masked leaf); every key must be filled."""
+    if not _is_param_tree(tree):
+        raise ValueError(f"{_where(path)}: expected a tree over the networks "
+                         f"{list(NETS)}, got {type(tree).__name__}")
+    flat: Dict[str, torch.Tensor] = {}
+    for net, sub in tree.items():
+        stack = [((), sub)]
+        while stack:
+            sub_path, node = stack.pop()
+            if isinstance(node, Mapping):
+                stack.extend((sub_path + (str(k),), v) for k, v in node.items())
+                continue
+            if node is None:  # a leaf the solver does not see
+                continue
+            name, x = _convert_param(sub_path, np.asarray(node))
+            flat[f"{net}.{name}"] = torch.from_numpy(np.array(x, order="C"))
+    wanted = set(keys)
+    carried = sorted(k for k in flat if k not in wanted)
+    if carried:
+        raise ValueError(
+            f"{_where(path)}: the checkpoint holds solver state for {carried[:4]} "
+            f"({len(carried)} leaves), which this config's solver does not train "
+            "(another train_feat?); resuming would drop it")
+    missing = sorted(wanted - set(flat))
+    if missing:
+        raise ValueError(
+            f"{_where(path)}: no solver state for {missing[:4]} ({len(missing)} "
+            "parameters): another train_feat or another network?")
+    return [flat[k] for k in keys]
+
+
+def _chain_state(tree: Any, path: Tuple[str, ...], config: ExperimentConfig,
+                 param_keys: Sequence[str]) -> Any:
+    """``optax.multi_transform``'s state of the train/freeze chain -> the
+    port's ``masked(chain(...))`` state over ``param_keys``."""
+    opt = config.optim.optimizer
+    if not isinstance(tree, Mapping) or set(tree) != {"inner_states"}:
+        raise ValueError(f"{_where(path)}: expected optax.multi_transform's state "
+                         "(inner_states); another iter_size?")
+    labels = tree["inner_states"]
+    if set(labels) != {"train", "freeze"}:
+        raise ValueError(f"{_where(path + ('inner_states',))}: labels {sorted(labels)}, "
+                         "expected train and freeze")
+    if any(v is not None for _, v in _slots(labels["freeze"], ())):
+        raise ValueError(f"{_where(path + ('inner_states', 'freeze'))}: the frozen label "
+                         "holds a state; the port's frozen leaves keep none")
+    inner_path = path + ("inner_states", "train", "inner_state")
+    found = list(_slots(labels["train"]["inner_state"], inner_path))
+    names = tuple(p[-1] for p, _ in found)
+    want = SOLVER_LEAVES[opt]
+    if names != want:
+        at = next((i for i in range(min(len(names), len(want))) if names[i] != want[i]),
+                  min(len(names), len(want)) - 1)
+        where = found[at][0] if found else inner_path
+        raise ValueError(
+            f"{_where(where)}: the checkpoint's solver state holds {list(names)}, where "
+            f"this config's {opt!r} holds {list(want)} (another optimizer?)")
+    # The parameters the solver trains: make_optimizer's mask.
+    trained = [k for k in param_keys if config.train_feat or not k.startswith("feat.")]
+    values = iter([_count(v, p) if n == "count" else _moments(v, p, trained)
+                   for (p, v), n in zip(found, names)])
+    chain = dataclasses.replace(config, optim=dataclasses.replace(config.optim, iter_size=1))
+    template = make_optimizer(chain).init({k: torch.empty(0) for k in param_keys})
+
+    def fill(t):
+        if type(t) in (int, list):
+            return next(values)
+        return tuple(fill(x) for x in t)
+
+    return fill(template)
+
+
+def _inner_counts(state: Any) -> List[int]:
+    if type(state) is int:
+        return [state]
+    if type(state) is tuple:
+        return [c for x in state for c in _inner_counts(x)]
+    return []
+
+
+def opt_state_from_jax(opt_state: Mapping[str, Any], config: ExperimentConfig,
+                       param_keys: Sequence[str]) -> Any:
+    """The reference's optax state of ``make_optimizer(config)`` (as
+    :func:`io.orbax_reader.read_tree` returns it) -> the port's solver
+    state of ``train.state.make_optimizer(config)`` over ``param_keys``
+    (:func:`train.state.param_tree`'s order).
+
+    Every moment and accumulator goes through its parameter's layout
+    transform (HWIO -> OIHW, transposed dense kernels, flax's BatchNorm
+    ``scale`` -> ``weight``) in ``param_keys`` order; counts become Python
+    ints. With ``iter_size > 1`` (``optax.MultiSteps``) ``mini_step`` and
+    ``acc_grads`` carry over, and ``gradient_step`` must equal the inner
+    chain's counts. A frozen network's moments are saved empty and carry
+    nothing. Raises ``ValueError`` naming the path where the checkpoint's
+    structure is not this config's: another optimizer, iter_size or
+    train_feat."""
+    keys = list(param_keys)
+    k = config.optim.iter_size
+    multi = isinstance(opt_state, Mapping) and "acc_grads" in opt_state
+    if (k > 1) != multi:
+        raise ValueError(
+            f"opt_state: the checkpoint's solver {'accumulates' if multi else 'does not accumulate'}"
+            f" micro-batches (optax.MultiSteps {'present' if multi else 'absent'}), this "
+            f"config has iter_size {k}")
+    if not multi:
+        return _chain_state(opt_state, ("opt_state",), config, keys)
+    if set(opt_state) != set(_MULTI_STEPS):
+        raise ValueError(f"opt_state: MultiSteps fields {sorted(opt_state)}, expected "
+                         f"{sorted(_MULTI_STEPS)}")
+    if any(v is not None for _, v in _slots(opt_state["skip_state"], ())):
+        raise ValueError("opt_state/skip_state: a skip state the port does not keep")
+    mini_step = _count(opt_state["mini_step"], ("opt_state", "mini_step"))
+    if not 0 <= mini_step < k:
+        raise ValueError(f"opt_state/mini_step: {mini_step} micro-batches accumulated, "
+                         f"which iter_size {k} does not allow (another iter_size?)")
+    inner = _chain_state(opt_state["inner_opt_state"], ("opt_state", "inner_opt_state"),
+                         config, keys)
+    gradient_step = _count(opt_state["gradient_step"], ("opt_state", "gradient_step"))
+    if any(c != gradient_step for c in _inner_counts(inner)):
+        raise ValueError(f"opt_state/gradient_step: {gradient_step} updates, but the inner "
+                         f"solver counts {_inner_counts(inner)}")
+    acc = _moments(opt_state["acc_grads"], ("opt_state", "acc_grads"), keys)
+    return (mini_step, acc, inner)
+
+
+def train_state_from_jax(tree: Mapping[str, Any], config: ExperimentConfig,
+                         models: Models) -> Dict[str, Any]:
+    """A whole saved reference train state (:func:`io.orbax_reader.read_tree`)
+    -> :func:`train.state.state_dict`'s plain data for ``models`` and
+    ``make_optimizer(config)``, which :func:`train.state.load_state_dict`
+    loads in place. The BatchNorm step counters, which flax does not have,
+    keep ``models``' values."""
+    nets = params_from_jax(tree["params"], tree["batch_stats"])
+    for name, net in zip(Models._fields, models):
+        if net is not None and name in nets:
+            for k, v in net.state_dict().items():
+                if k.endswith("num_batches_tracked"):
+                    nets[name].setdefault(k, v.detach().to("cpu", copy=True))
+    keys = list(param_tree(models))
+    return {"step": _count(tree["step"], ("step",)), "nets": nets, "param_keys": keys,
+            "opt_state": opt_state_from_jax(tree["opt_state"], config, keys)}

@@ -735,8 +735,9 @@ def fit(
     ``config.init_from`` and the feature net from ``config.init_feat_from``
     (the staged recipe, ``io.checkpoint.restore_weights`` /
     ``restore_param_subtree``). With ``checkpoint_dir`` the loop resumes
-    from the newest checkpoint there (a no-op on an empty directory),
-    writes ``config.json`` beside it and snapshots every
+    from the newest checkpoint there, the port's or the JAX package's (a
+    no-op on an empty directory), writes ``config.json`` beside it and
+    snapshots every
     ``config.checkpoint_every`` steps, after the last step and on the
     signal actions; a step already saved is not saved again.
 
@@ -806,7 +807,7 @@ def fit(
     mgr = None
     if checkpoint_dir is not None:
         mgr = ckpt_io.make_manager(checkpoint_dir)
-        state = ckpt_io.maybe_restore(mgr, state)
+        state = ckpt_io.maybe_restore(mgr, state, config)
         # The architecture travels with the weights: `cli test`,
         # DepthVO.from_checkpoint and the reference read it back.
         if coordinator:

@@ -239,10 +239,21 @@ def test_staged_init_matches_networks_by_name(ref_dir):
         ckpt.restore_param_subtree(d, state, "feat")
 
 
-def test_reference_directory_is_not_resumed_and_needs_tensorstore(ref_dir, monkeypatch):
-    d, _, _ = ref_dir
-    with pytest.raises(ValueError, match="--init-from"):
-        ckpt.maybe_restore(ckpt.make_manager(d), _fresh())
+def test_reference_directory_resumes_and_needs_tensorstore(ref_dir, monkeypatch):
+    """The whole state resumes (every solver and iter_size:
+    tests/test_torch_orbax_resume.py): here the weights, step 0 and the
+    fresh solver state the reference saved."""
+    d, params, stats = ref_dir
+    state = ckpt.maybe_restore(ckpt.make_manager(d), _fresh(seed=9), tconfigs.tiny_test())
+    assert state.step == 0
+    want = params_from_jax(params, stats)
+    got = _weights(state)
+    for name, sd in want.items():
+        for k, v in sd.items():
+            assert torch.equal(got[f"{name}.{k}"], v), f"{name}.{k}"
+    count, mu, nu = state.opt_state[1]
+    assert count == 0 and state.opt_state[-1] == 0
+    assert all(float(t.abs().max()) == 0.0 for t in mu + nu)
     monkeypatch.setitem(__import__("sys").modules, "tensorstore", None)
     with pytest.raises(ImportError, match="tensorstore"):
         orbax_reader.read_weights(os.path.join(d, "0"))
