@@ -49,7 +49,23 @@ with a nonzero exit code:
              equal to its plain version everywhere; the path's two
              launches timed together and each alone, beside the four
              one-segment launches, the four library grid backwards timed
-             together and the summed byte bound.
+             together and the summed byte bound. Then the global
+             BatchNorm's four kernels (``ops/csrc/batch_norm.cu``: bn_stats,
+             bn_normalize, bn_bwd_reduce, bn_bwd_elemt) at the 53 layer
+             shapes of the step (forward hooks on the DepthNet), float32
+             and bf16 from the same random data with channel 0 constant,
+             each downstream kernel fed the kernel's own upstream buffer:
+             the sums within BN_SUM_TOL of sum |x| (sum x^2, sum |g|, sum
+             |g xhat|) per channel and the counts equal, the running
+             averages within BN_RUNNING_TOL of their max, y and dx within
+             BN_F32_TOL of their max (float32) or BN_BF16_ULPS bf16 units
+             in the last place (bit for bit), also with channel 0's sum of
+             squares cut so that its variance is clamped; the device time of each per step (all 53
+             layers) beside its plain version, SyncBatchNorm's library
+             calls for the same function (``batch_norm_stats`` +
+             ``batch_norm_gather_stats_with_counts``, ``batch_norm_elemt``,
+             ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``;
+             timed only, never called by the port) and the byte bound.
 4. slice   - the held-out loss pass (``make_eval_step`` + ``run_validation``,
              what ``cli test`` runs) on full_feat at 608x160, batch 4:
              float32 with TF32 off against the same pass on the CPU (plain
@@ -231,10 +247,19 @@ with a nonzero exit code:
              held as one vector within 4x that spread); on the default
              bfloat16 config (cuDNN deterministic) 4 steps through the graph
              (collectives captured) against 4 eager steps bit for bit; the
-             warp launches (1/2/1/4) and the all-reduces per eager step in
-             a profiler trace (3 + 2 per BatchNorm); ms/step under the graph
-             (K=8) with the mesh and without, in turns; ``fit`` over the
-             mesh with checkpoints and K=2 (stopped at 3, resumed to 5);
+             warp launches (1/2/1/4), the BatchNorm kernels' launches
+             (each once per layer, in the counters and in a profiler
+             trace) and the all-reduces per eager step (3 + 2 per
+             BatchNorm); ms/step under the graph (K=8) with the mesh and
+             without, in turns, with kernels, device busy ms and the
+             graph's pool per step and what the mesh adds to each, and
+             the BatchNorm kernels K x per call under replay (none
+             without the mesh); ``fit`` over the mesh with checkpoints
+             and K=2 (stopped at 3, resumed to 5); the main path, what
+             each rank of ``cli train --num-devices N`` runs
+             (``cli._rank_main``), counts reset just before and read just
+             after: 1/2/1/4 warp launches and each BatchNorm kernel once
+             per layer per step;
              (2) two gloo ranks sharing the card, each on half of the
              global batch for 2 eager float32 steps, held against one rank
              on the global batch and equal to each other bit for bit; then
@@ -246,7 +271,8 @@ with a nonzero exit code:
              ``cli train --num-devices 2 --device cpu`` (tiny_test) exits 0
              with the coordinator's 2 log lines, and ``cli train`` on the
              card without ``--num-devices`` takes one device and the plain
-             path (no process group, 1/2/1/4 launches per step); (4)
+             path (no process group, 1/2/1/4 launches per step, no
+             BatchNorm kernel); (4)
              ``predict_depths`` over a mesh of one replica equals
              ``mesh=None`` bit for bit.
 14. pretrain_feat - feature pretraining (A.9) at 608x160, batch 4: the
@@ -286,9 +312,11 @@ with a nonzero exit code:
              and latency.
 
 The last three lines are the nvidia-smi line, the ``{"kernels": [...]}``
-summary (launches per step of the main path, ``cli train``; for
+summary (launches in the main path's run, ``cli train``; for
 stereo_fwd and gen_fwd the grouped launch's times, for stereo_bwd_u the
-path's two launches) and
+path's two launches; for the four BatchNorm kernels the launches in the
+2-step run of ``cli train --num-devices N``'s rank body, and per step,
+and the bf16 times over the 53 layers) and
 ``{"ok": true, "device": {...}}``. Without a GPU the script
 exits with code 1 and prints no result.
 """
@@ -322,6 +350,16 @@ K5_TOL = 1e-6
 METRIC_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 STATS_RTOL = 2e-4
+# The global BatchNorm's kernels against their plain versions: the sums
+# relative to sum |x| (sum x^2, sum |g|, sum |g xhat|) per channel (another
+# order of float32 sums; measured <= 2.4e-7 on an H100, PERF.md), the
+# running averages relative to their max, y and dx relative to their max
+# in float32 and in bf16 units in the last place: bit for bit, since both
+# take the same statistics through the same correctly rounded ops.
+BN_SUM_TOL = 1e-6
+BN_RUNNING_TOL = 0.0
+BN_F32_TOL = 0.0
+BN_BF16_ULPS = 0.0
 
 
 def emit(obj) -> None:
@@ -699,7 +737,213 @@ def phase_kernels(cfg, dev):
         "bound_ms": b_ms, "bound_by": b_by,
         "finest_bound_ms": bound_of(srcs[-1:])[0], "coarse_bound_ms": bound_of(srcs[:-1])[0],
     })
+    rows += _bn_rows(cfg, dev)
     emit({"phase": "kernels", "shapes": rows})
+    return rows
+
+
+def bn_shapes(cfg, dev) -> list:
+    """(N, C, H, W) of every BatchNorm layer's input in the train step,
+    in order: the DepthNet's, from forward hooks on one batch."""
+    import torch
+
+    from depthvo_tpu_torch.models.layers import BatchNorm
+    from depthvo_tpu_torch.train.state import build_models
+
+    models = build_models(cfg)
+    shapes = []
+    hooks = [m.register_forward_hook(lambda m, args, out: shapes.append(tuple(args[0].shape)))
+             for net in models if net is not None for m in net.modules()
+             if isinstance(m, BatchNorm)]
+    depth = models.depth.to(dev)
+    with torch.no_grad():
+        depth(torch.zeros(BATCH, cfg.model.height, cfg.model.width, 3, device=dev))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def _bf16_ulps(got, want) -> float:
+    """max |got - want| in units of bf16's last place at ``want``."""
+    import torch
+
+    w = want.float()
+    _, e = torch.frexp(w)
+    return float(((got.float() - w).abs() / torch.exp2((e - 8).float())).max())
+
+
+def _bn_rows(cfg, dev) -> list:
+    """The global BatchNorm's four kernels against their plain versions at
+    the 53 layer shapes of the full_feat step, float32 and bf16 from the
+    same random data (channel 0 of every layer constant, near the
+    variance's clamp); each downstream kernel is compared on the kernel's
+    own upstream buffer (stats, save, sums), so the plain version sees the
+    same statistics, and again with channel 0's sum of squares cut below
+    n mean^2, so that the clamp is on there. Then the device time per step, all 53 layers: kernel,
+    plain version, SyncBatchNorm's library calls (timed only) and the byte
+    bound."""
+    import torch
+
+    from depthvo_tpu_torch.ops import batch_norm as bn
+
+    shapes = bn_shapes(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    m, eps = 0.05, 1e-5
+    data = []
+    for shape in shapes:
+        C = shape[1]
+        x = (torch.randn(shape, device=dev, generator=gen)
+             * (0.5 + 2 * torch.rand(1, C, 1, 1, device=dev, generator=gen))
+             + 2 * torch.randn(1, C, 1, 1, device=dev, generator=gen))
+        x[:, 0] = 0.37
+        data.append({"x": x, "g": torch.randn(shape, device=dev, generator=gen),
+                     "w": 0.5 + torch.rand(C, device=dev, generator=gen),
+                     "b": torch.randn(C, device=dev, generator=gen),
+                     "rm": torch.randn(C, device=dev, generator=gen),
+                     "rv": 0.5 + torch.rand(C, device=dev, generator=gen)})
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = {k: [] for k in ("stats", "running", "normalize", "bwd_reduce", "bwd_elemt")}
+        abs_errs = {k: 0.0 for k in bn.KERNELS}
+        layers, clamped = [], 0
+        for d in data:
+            x, g = d["x"].to(dtype).contiguous(), d["g"].to(dtype).contiguous()
+            C = x.shape[1]
+            stats = bn.bn_stats_cuda(x)
+            p_stats = bn.bn_stats_plain(x)
+            xf = x.float()
+            scale = torch.cat([xf.abs().sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+            errs["stats"].append(float(((stats[:2 * C] - p_stats[:2 * C]).abs()
+                                        / scale.clamp_min(1e-30)).max()))
+            if stats[2 * C] != p_stats[2 * C]:
+                raise AssertionError(f"bn_stats count {stats[2 * C]} != {p_stats[2 * C]}")
+            abs_errs["bn_stats"] = max(abs_errs["bn_stats"],
+                                       float((stats - p_stats).abs().max()))
+            rk, rp = [(d["rm"].clone(), d["rv"].clone()) for _ in range(2)]
+            y, save = bn.bn_normalize_cuda(x, stats, d["w"], d["b"], *rk, m, eps)
+            y_p, save_p = bn.bn_normalize_plain(x, stats, d["w"], d["b"], *rp, m, eps)
+            clamped += int(save[2 * C:3 * C].eq(0).sum())
+            run = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(rk, rp))
+            errs["running"].append(run)
+            sums = bn.bn_bwd_reduce_cuda(g, x, save)
+            sums_p = bn.bn_bwd_reduce_plain(g, x, save)
+            gf = g.float()
+            xhat = (xf - save[:C].view(1, C, 1, 1)) * save[C:2 * C].view(1, C, 1, 1)
+            g_scale = torch.cat([gf.abs().sum((0, 2, 3)), (gf * xhat).abs().sum((0, 2, 3))])
+            errs["bwd_reduce"].append(float(((sums - sums_p).abs()
+                                             / g_scale.repeat(2).clamp_min(1e-30)).max()))
+            dx = bn.bn_bwd_elemt_cuda(g, x, d["w"], save, sums)
+            dx_p = bn.bn_bwd_elemt_plain(g, x, d["w"], save, sums)
+            # The clamp: the same with channel 0's sum of squares cut so
+            # that Q/n - mean^2 < 0 (rstd from eps alone, no xhat term).
+            cut = stats.clone()
+            cut[C] = cut[0] * cut[0] / cut[2 * C] * (1 - 2**-10)
+            y_c, save_c = bn.bn_normalize_cuda(x, cut, d["w"], d["b"], *rk, m, eps, False)
+            y_cp = bn.bn_normalize_plain(x, cut, d["w"], d["b"], *rp, m, eps, False)[0]
+            dx_c = bn.bn_bwd_elemt_cuda(g, x, d["w"], save_c, sums)
+            dx_cp = bn.bn_bwd_elemt_plain(g, x, d["w"], save_c, sums)
+            clamped += int(save_c[2 * C:3 * C].eq(0).sum())
+            for key, a, b in (("normalize", y, y_p), ("bwd_elemt", dx, dx_p),
+                              ("normalize", y_c, y_cp), ("bwd_elemt", dx_c, dx_cp)):
+                errs[key].append(_bf16_ulps(a, b) if dtype == torch.bfloat16 else
+                                 float((a - b).abs().max() / b.abs().max()))
+            abs_errs["bn_normalize"] = max(abs_errs["bn_normalize"],
+                                           *(float((a - b).abs().max()) for a, b in zip(rk, rp)),
+                                           float((y.float() - y_p.float()).abs().max()),
+                                           float((save - save_p).abs().max()))
+            abs_errs["bn_bwd_reduce"] = max(abs_errs["bn_bwd_reduce"],
+                                            float((sums - sums_p).abs().max()))
+            abs_errs["bn_bwd_elemt"] = max(abs_errs["bn_bwd_elemt"],
+                                           float((dx.float() - dx_p.float()).abs().max()))
+            layers.append({"x": x, "g": g, "w": d["w"], "b": d["b"], "stats": stats,
+                           "save": save, "sums": sums, "rk": rk, "C": C})
+        worst = {k: max(v) for k, v in errs.items()}
+        tol = BN_BF16_ULPS if dtype == torch.bfloat16 else BN_F32_TOL
+        bars = {"stats": BN_SUM_TOL, "bwd_reduce": BN_SUM_TOL, "running": BN_RUNNING_TOL,
+                "normalize": tol, "bwd_elemt": tol}
+        if any(not worst[k] <= bars[k] for k in bars) or clamped < len(data):
+            raise AssertionError(f"BatchNorm kernels, {dtype}: worst {worst}, bars {bars}, "
+                                 f"clamped channels {clamped} of {len(data)} cut")
+        rows += _bn_timing(layers, dtype, worst, abs_errs, clamped, m, eps)
+    return rows
+
+
+def _bn_timing(layers, dtype, worst, abs_errs, clamped, m, eps) -> list:
+    """Device ms per step (all layers) of each BatchNorm kernel, its plain
+    version and SyncBatchNorm's library call(s) for the same function,
+    beside the byte bound."""
+    import torch
+
+    from depthvo_tpu_torch.ops import batch_norm as bn
+
+    size = torch.empty((), dtype=dtype).element_size()
+    elems = sum(d["x"].numel() for d in layers)
+    chans = sum(d["C"] for d in layers)
+
+    def lib_inputs(d):
+        mean, invstd = torch.batch_norm_stats(d["x"], eps)
+        n = d["x"].numel() // d["C"]
+        return {"mean": mean, "invstd": invstd,
+                "counts": torch.full((1,), n, device=mean.device, dtype=torch.float32),
+                "count": torch.full((1,), n, device=mean.device, dtype=torch.int32),
+                "red": torch.batch_norm_backward_reduce(d["g"], d["x"], mean, invstd, d["w"],
+                                                        True, True, True)}
+
+    def lib_stats(d, L):
+        mean, invstd = torch.batch_norm_stats(d["x"], eps)
+        return torch.batch_norm_gather_stats_with_counts(
+            d["x"], mean[None], invstd[None], d["rk"][0], d["rk"][1], m, eps, L["counts"])
+
+    try:
+        lib_in, lib_err = [lib_inputs(d) for d in layers], None
+    except Exception as e:  # a yardstick only: recorded, never required
+        torch.cuda.synchronize()
+        lib_in, lib_err = None, f"{type(e).__name__}: {e}"[:300]
+    calls = {
+        "bn_stats": (lambda d: bn.bn_stats_cuda(d["x"]), lambda d: bn.bn_stats_plain(d["x"]),
+                     lib_stats, elems * size + chans * 8),
+        "bn_normalize": (
+            lambda d: bn.bn_normalize_cuda(d["x"], d["stats"], d["w"], d["b"], *d["rk"], m, eps),
+            lambda d: bn.bn_normalize_plain(d["x"], d["stats"], d["w"], d["b"], *d["rk"], m,
+                                            eps),
+            lambda d, L: torch.batch_norm_elemt(d["x"], d["w"], d["b"], L["mean"], L["invstd"],
+                                                eps),
+            2 * elems * size + chans * 44),
+        "bn_bwd_reduce": (
+            lambda d: bn.bn_bwd_reduce_cuda(d["g"], d["x"], d["save"]),
+            lambda d: bn.bn_bwd_reduce_plain(d["g"], d["x"], d["save"]),
+            lambda d, L: torch.batch_norm_backward_reduce(d["g"], d["x"], L["mean"], L["invstd"],
+                                                          d["w"], True, True, True),
+            2 * elems * size + chans * 28),
+        "bn_bwd_elemt": (
+            lambda d: bn.bn_bwd_elemt_cuda(d["g"], d["x"], d["w"], d["save"], d["sums"]),
+            lambda d: bn.bn_bwd_elemt_plain(d["g"], d["x"], d["w"], d["save"], d["sums"]),
+            lambda d, L: torch.batch_norm_backward_elemt(
+                d["g"], d["x"], L["mean"], L["invstd"], d["w"], L["red"][0], L["red"][1],
+                L["count"]),
+            3 * elems * size + chans * 24),
+    }
+    check = {"bn_stats": ("stats",), "bn_normalize": ("normalize", "running"),
+             "bn_bwd_reduce": ("bwd_reduce",), "bn_bwd_elemt": ("bwd_elemt",)}
+    rows = []
+    for name, (kernel, plain, lib, nbytes) in calls.items():
+        b_ms, b_by = bound_ms(nbytes, 4 * elems)
+        lib_ms, row_err = None, lib_err
+        if lib_in is not None:
+            try:
+                lib_ms = device_ms(lambda: [lib(d, L) for d, L in zip(layers, lib_in)])
+            except Exception as e:  # a yardstick only: recorded, never required
+                torch.cuda.synchronize()
+                row_err = f"{type(e).__name__}: {e}"[:300]
+        rows.append({
+            "kernel": name, "dtype": str(dtype).split(".")[-1], "layers": len(layers),
+            "elements": elems, "clamped_channels": clamped,
+            "max_abs_err": abs_errs[name], **{f"worst_{k}": worst[k] for k in check[name]},
+            "ms": device_ms(lambda: [kernel(d) for d in layers]),
+            "plain_ms": device_ms(lambda: [plain(d) for d in layers]),
+            "library_ms": lib_ms, "library_error": row_err,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        })
     return rows
 
 
@@ -1013,6 +1257,30 @@ WARP_KERNEL_NAMES = {  # the kernels' names in a profiler trace
     "gen_bwd_uv": "gen_bwd_uv_kernel",
 }
 SCAN_K = 8
+# The global BatchNorm's device kernels in a profiler trace, per layer and
+# train step over a mesh: bn_stats and bn_bwd_reduce launch their partial
+# sums and then the fixed-order sum of the partials.
+BN_TRACE_PER_LAYER = {"bn_stats_partial_kernel": 1, "bn_sum_partials_kernel": 2,
+                      "bn_normalize_kernel": 1, "bn_bwd_partial_kernel": 1,
+                      "bn_bwd_elemt_kernel": 1}
+
+
+def _check_bn_counts(n: int) -> dict:
+    """Launches since the last reset: each BatchNorm kernel ``n`` times."""
+    from depthvo_tpu_torch.ops import batch_norm as bn
+
+    counts = {k: bn.launch_count(k) for k in bn.KERNELS}
+    if counts != {k: n for k in bn.KERNELS}:
+        raise AssertionError(f"BatchNorm kernel launches {counts}, expected {n} each")
+    return counts
+
+
+def _bn_traced(prof, steps: int) -> dict:
+    """The BatchNorm device kernels per step in a profiler trace."""
+    import torch
+
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(k in name for name in names) / steps for k in BN_TRACE_PER_LAYER}
 
 
 def _state_leaves(state) -> dict:
@@ -2880,6 +3148,13 @@ def phase_dp(variant: str, dev, smi: str):
         launches = _check_counts(_train_launches(cfg), DP_PROFILED_STEPS)
         norms = sum(isinstance(m, layers.BatchNorm) for net in state.models if net is not None
                     for m in net.modules())
+        # each BatchNorm kernel once per layer per step, in the counters
+        # and in the trace
+        bn_launches = _check_bn_counts(norms * DP_PROFILED_STEPS)
+        bn_traced = _bn_traced(prof, DP_PROFILED_STEPS)
+        if bn_traced != {k: n * norms for k, n in BN_TRACE_PER_LAYER.items()}:
+            raise AssertionError(f"BatchNorm kernels per step in the trace {bn_traced}, "
+                                 f"expected {BN_TRACE_PER_LAYER} x {norms}")
         names = collections.Counter(e.name for e in prof.events()
                                     if "all_reduce" in e.name or "allreduce" in e.name)
         want = 3 + 2 * norms
@@ -2887,15 +3162,22 @@ def phase_dp(variant: str, dev, smi: str):
         if got != want:
             raise AssertionError(f"all-reduces per step {got} ({dict(names)}), expected {want}")
         out["per_step"] = {"warp_launches": {k: v // DP_PROFILED_STEPS for k, v in launches.items()},
+                           "bn_launches": {k: v // DP_PROFILED_STEPS
+                                           for k, v in bn_launches.items()},
+                           "bn_traced_kernels": bn_traced,
                            "all_reduces": got, "batch_norms": norms,
                            "trace_names": {k: v / DP_PROFILED_STEPS for k, v in names.items()}}
         # (e) ms/step under the graph, K=8 per call, with the mesh and
         # without, in turns; one traced call each: device busy ms, kernels
-        # and the NCCL kernels' ms per step.
+        # and the NCCL kernels' ms per step; the BatchNorm kernels K x per
+        # call under replay (none without the mesh); the graph's pool.
         stacked = loop.batch_to_device(loop.stack_batches(
             [host[i % len(host)] for i in range(SCAN_K)]), dev)
         timing = {}
         for name, m in (("mesh", mesh), ("plain", None), ("mesh_again", mesh)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            wk.reset_launches()
             state = create_state(cfg, dev)
             scan = loop.make_scan_train_step(cfg, m, device=dev)
             ms = []
@@ -2918,9 +3200,19 @@ def phase_dp(variant: str, dev, smi: str):
                 "traced_kernels_per_step": len(kernels) / SCAN_K,
                 "traced_nccl_per_step": len(nccl) / SCAN_K,
                 "traced_nccl_ms_per_step": sum(e.time_range.end - e.time_range.start
-                                               for e in nccl) / SCAN_K / 1e3}
+                                               for e in nccl) / SCAN_K / 1e3,
+                "traced_bn_kernels_per_step": _bn_traced(prof, SCAN_K),
+                "bn_launches": _check_bn_counts(norms * 5 * SCAN_K if m is not None else 0),
+                "graph_pool_bytes": _private_pool_bytes()}
             del state, scan
         out["bf16_graph_ms_per_step"] = timing
+        # what the mesh adds per step at one rank: the collectives and the
+        # global BatchNorm
+        out["mesh_extra_per_step"] = {
+            name: {k: timing[name][key] - timing["plain"][key] for k, key in (
+                ("ms", "ms_per_step"), ("device_busy_ms", "traced_device_busy_ms_per_step"),
+                ("kernels", "traced_kernels_per_step"), ("pool_bytes", "graph_pool_bytes"))}
+            for name in ("mesh", "mesh_again")}
         # (f) fit over the mesh: rank 0's state broadcast, K=2 per call
         # with the collectives captured, the signal agreement over a gloo
         # side group, snapshots with a barrier; resumes at the saved step.
@@ -2934,6 +3226,23 @@ def phase_dp(variant: str, dev, smi: str):
         if saved != ["3", "5", "config.json"] or logged != [1, 2, 4]:
             raise AssertionError(f"fit over the mesh: saved {saved}, logged {logged}")
         out["fit_over_mesh"] = {"saved": saved, "logged_steps": logged}
+        # (g) The main path: what each rank of `cli train --num-devices N`
+        # runs (cli._rank_main: the mesh over the group, then the command),
+        # counts reset just before and read just after: 1/2/1/4 warp
+        # launches and each BatchNorm kernel once per layer per step.
+        argv = ["train", "--variant", variant, "--steps", "2", "--batch-size", str(BATCH),
+                "--device", "cuda", "--log-every", "1"]
+        wk.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            cli._rank_main(dev, cli.build_parser().parse_args(argv), "train")
+        torch.cuda.synchronize()
+        logged = [ln for ln in log.getvalue().splitlines() if ln.startswith("step ")]
+        out["cli_rank"] = {
+            "argv": argv, "logged": logged,
+            "warp_launches": _check_counts(_train_launches(cfg), 2),
+            "bn_launches": _check_bn_counts(2 * norms), "steps": 2}
+        if len(logged) != 2:
+            raise AssertionError(f"cli train rank body over the mesh logged {logged}")
     finally:
         torch.distributed.destroy_process_group()
         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
@@ -3000,7 +3309,8 @@ def phase_dp(variant: str, dev, smi: str):
     if rc != 0 or torch.distributed.is_initialized() or torch.cuda.device_count() != 1:
         raise AssertionError(f"cli train on the card: rc {rc}")
     out["cli"] = {"cpu_two_ranks": logged, "card_default": {
-        "argv": argv, "launches": _check_counts(_train_launches(cfg), 2)}}
+        "argv": argv, "launches": _check_counts(_train_launches(cfg), 2),
+        "bn_launches": _check_bn_counts(0)}}
 
     # (4) Eval: predict_depths over a mesh of one replica = mesh=None.
     model = DepthVO.from_random(cfg, device=dev)
@@ -3013,6 +3323,7 @@ def phase_dp(variant: str, dev, smi: str):
         raise AssertionError("predict_depths over a mesh of one differs from mesh=None")
     out["eval_mesh_of_one"] = {"frames": len(frames), "bit_for_bit": True}
     emit(out)
+    return out
 
 
 def phase_pretrain_feat(variant: str, dev, smi: str):
@@ -3429,6 +3740,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from depthvo_tpu_torch.configs.base import full_feat
+    from depthvo_tpu_torch.ops import batch_norm as bn
 
     dev = torch.device("cuda")
     name, smi = phase_device()
@@ -3444,7 +3756,7 @@ def main() -> int:
     fixtures = phase_eval("full_feat", dev, smi)
     phase_int8_serving("full_feat", dev, smi, fixtures)
     phase_caffe("full_feat", dev, smi)
-    phase_dp("full_feat", dev, smi)
+    dp = phase_dp("full_feat", dev, smi)
     phase_pretrain_feat("full_feat", dev, smi)
     phase_bench("full_feat", dev, smi, scan["bf16_premade"]["graph"]["ms_per_step"], premade_ms)
     phase_serve(dev)
@@ -3482,6 +3794,22 @@ def main() -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed) else "operations",
             "library_ms": sum(r["library_ms"] for r in timed),
         } | ({"per_scale_ms": grouped[0]["per_scale_ms"]} if grouped else {}))
+    # The global BatchNorm under a mesh (not a TPU kernel): the bf16 step's
+    # times over its 53 layers, float32's beside them.
+    for kernel in bn.KERNELS:
+        by = {r["dtype"]: r for r in rows if r["kernel"] == kernel}
+        summary.append({
+            "name": kernel, "route": "cuda", "source": "depthvo_tpu_torch/ops/csrc/batch_norm.cu",
+            "replaces": "depthvo_tpu/models/layers.py:156",
+            "replaces_what": "flax nn.BatchNorm under a jit sharded over a mesh; not a TPU kernel",
+            "path": "cli train --num-devices N",
+            "launches": dp["cli_rank"]["bn_launches"][kernel],
+            "launches_per_step": dp["cli_rank"]["bn_launches"][kernel] // dp["cli_rank"]["steps"],
+            "max_abs_err": max(r["max_abs_err"] for r in by.values()),
+            "ms": by["bfloat16"]["ms"], "plain_ms": by["bfloat16"]["plain_ms"],
+            "bound_ms": by["bfloat16"]["bound_ms"], "bound_by": by["bfloat16"]["bound_by"],
+            "library_ms": by["bfloat16"]["library_ms"], "dtype": "bfloat16",
+            "float32_ms": by["float32"]["ms"]})
     print(smi, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

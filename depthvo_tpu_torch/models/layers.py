@@ -39,7 +39,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from depthvo_tpu_torch.ops import int8_conv
-from depthvo_tpu_torch.parallel.distributed import all_reduce_sum
+from depthvo_tpu_torch.ops.batch_norm import GlobalBatchNorm
 
 QUANT_MODES = ("off", "calibrate", "int8")
 _RECOMPUTE = threading.local()  # .on: inside the recompute of a remat region
@@ -207,23 +207,11 @@ class BatchNorm(nn.BatchNorm2d):
         return y
 
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        c = xf.shape[1]
-        stats = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
-                           xf.new_full((1,), xf.numel() // c)])
-        stats = all_reduce_sum(stats, self.group)
-        n = stats[2 * c]
-        mean = stats[:c] / n
-        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
-        if not getattr(_RECOMPUTE, "on", False):  # a remat recompute moves nothing
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-        shape = (1, c, 1, 1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        # A remat recompute runs the reduction again, in the same order on
+        # every rank, and moves nothing.
+        return GlobalBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                     self.running_var, self.group, self.momentum, self.eps,
+                                     not getattr(_RECOMPUTE, "on", False))
 
     def eval_ieee(self, x: torch.Tensor) -> torch.Tensor:
         """Eval mode as flax writes it, ``(x - mean) * (scale / sqrt(var +

@@ -84,7 +84,8 @@ FWD_PIX = 2
 TABLE_FIELDS = ("src", "u", "v", "g", "out", "s_aux", "d_aux")
 
 # Launches per (kernel name, src shape); only the CUDA wrappers count,
-# where they launch.
+# where they launch: the warps' here and the global BatchNorm's
+# (ops/batch_norm.py), so that a graph's replays count both.
 LAUNCHES: collections.Counter = collections.Counter()
 # What the wrappers were called for while their stream was capturing a
 # CUDA graph: the capture runs no kernel. Whoever replays the graph adds

@@ -463,7 +463,7 @@ class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     scalars: torch.Tensor  # the plan's numbers the graph reads
     metrics: Dict[str, torch.Tensor]  # what each replay writes
-    launches: collections.Counter  # the warp kernels' launches per replay
+    launches: collections.Counter  # the CUDA kernels' launches per replay
 
 
 def _state_tensors(state: TrainState) -> list:
