@@ -31,6 +31,7 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 import numpy as np
 
 from depthvo_tpu_torch.data import native_loader
+from depthvo_tpu_torch.utils import spans
 
 
 def _pil():
@@ -48,7 +49,7 @@ _NATIVE = None  # tri-state: None = unprobed, False = unavailable
 
 
 def _native():
-    """The C++ decode/resize runtime (native/dataloader.cpp), if buildable."""
+    """The C++ decode/resize runtime (data/csrc/dataloader.cpp), if buildable."""
     global _NATIVE
     if _NATIVE is None:
         _NATIVE = native_loader if native_loader.available() else False
@@ -290,7 +291,7 @@ class KittiRawStereo:
         data_transformer, SURVEY.md §2b(ii)):
 
         * ``native_ring=True`` — the C++ prefetch ring
-          (native/dataloader.cpp): decode+resize AND batch assembly run
+          (data/csrc/dataloader.cpp): decode+resize AND batch assembly run
           on C++ threads; Python only copies ready buffers. Composes with ``u8``
           batches — C++ decode plus the 4x smaller uplink is the
           production configuration.
@@ -340,7 +341,10 @@ class KittiRawStereo:
         (shuffle=False) so each (lt, rt, ls) triple stays contiguous —
         the ring's wrap point (a multiple of 3) never splits one.
         Falls back to the thread-pool path on any decode failure
-        (non-8-bit PNG etc.).
+        (non-8-bit PNG etc.). While ``utils.spans`` is on, each batch adds
+        the ring's counters (``native_loader.STATS_FIELDS``, cumulative in
+        the ring) since the last reading to it as ``ring.<field>``; while
+        it is off the ring's counters are not read.
         """
         rng = np.random.default_rng(seed)
         order = rng.permutation(len(self.samples)) if shuffle else np.arange(
@@ -358,6 +362,7 @@ class KittiRawStereo:
             paths, 3 * batch_size, self.height, self.width, shuffle=False,
             u8=self.u8,
         )
+        seen = dict.fromkeys(native_loader.STATS_FIELDS, 0)
         try:
             while True:
                 try:
@@ -368,6 +373,10 @@ class KittiRawStereo:
                         batch_size, seed=seed, shuffle=shuffle, native_ring=False
                     )
                     return
+                if spans.enabled():
+                    for name, total in ring.stats().items():
+                        spans.count("ring." + name, total - seen[name])
+                        seen[name] = total
                 sample_rows = idx[0::3] // 3
                 yield {
                     "image_t": imgs[0::3],

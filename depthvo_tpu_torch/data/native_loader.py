@@ -1,5 +1,6 @@
-"""ctypes binding of the repo's native data-loading runtime
-(``native/dataloader.cpp``; counterpart of
+"""ctypes binding of the port's native data-loading runtime
+(``csrc/dataloader.cpp``, the port's copy of the reference's
+``native/dataloader.cpp`` with the ring's counters added; counterpart of
 ``depthvo_tpu/data/native_loader.py``).
 
 The C++ source decodes PNGs (zlib inflate and per-scanline unfilter),
@@ -8,9 +9,19 @@ prefetch ring of ready batches; Python only copies finished buffers.
 Batches come out as [-1, 1] float32 or raw uint8 (the small host->device
 copy; the loss graph normalises on the device).
 
-The port builds its own copy of the library from the source in the
-checkout, with ``g++`` and ``-march=native`` as the repo's Makefile does,
-into ``depthvo_tpu_torch/data/build/``. The file is named after the host
+The ring counts its work, always (atomics, a few clock reads an image):
+``NativeBatchLoader.stats()`` returns :data:`STATS_FIELDS` since the
+ring started: ``batches`` served, ``consumer_wait_ns`` (``next()``
+blocked until its batch was ready), ``images`` decoded, ``decode_ns``
+and ``resize_ns`` (the workers' wall time in PNG decode and in the
+resize, summed over workers) and ``work_cpu_ns`` (their thread CPU time
+over the same intervals: under ``decode_ns + resize_ns`` where the
+workers waited for a core). ``data.kitti``'s ring iterator adds them to
+``utils.spans`` as ``ring.<field>``.
+
+The port builds its library from that source in the checkout, with
+``g++`` and ``-march=native`` as the repo's Makefile does, into
+``depthvo_tpu_torch/data/build/``. The file is named after the host
 (machine, a hash of the CPU's feature flags, the source and the flags),
 so a library built on one machine is never loaded on another whose CPU
 lacks its instructions. A build failure (no compiler, no ``zlib.h``)
@@ -26,14 +37,18 @@ import platform
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Iterator, Sequence
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "dataloader.cpp"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "dataloader.cpp"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"]
 LDFLAGS = ["-lz", "-lpthread"]
+
+# dvf_loader_stats' fields, in csrc/dataloader.cpp's Stat order.
+STATS_FIELDS = ("batches", "consumer_wait_ns", "images", "decode_ns", "resize_ns",
+                "work_cpu_ns")
 
 _lib = None
 
@@ -104,6 +119,12 @@ def load_library() -> ctypes.CDLL:
     lib.dvf_loader_next_u8.argtypes = [ctypes.c_void_p, c_u8p, ctypes.POINTER(c_i64)]
     lib.dvf_loader_destroy.restype = None
     lib.dvf_loader_destroy.argtypes = [ctypes.c_void_p]
+    lib.dvf_loader_stats.restype = c_int
+    lib.dvf_loader_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(c_i64), c_int]
+    n = lib.dvf_loader_stats(None, None, 0)
+    if n != len(STATS_FIELDS):
+        raise RuntimeError(f"{SOURCE.name} counts {n} ring statistics; STATS_FIELDS "
+                           f"names {len(STATS_FIELDS)}: {STATS_FIELDS}")
     _lib = lib
     return lib
 
@@ -194,6 +215,14 @@ class NativeBatchLoader:
         if rc != 0:
             raise ValueError(f"native loader batch had decode error {rc}")
         return out, idx
+
+    def stats(self) -> Dict[str, int]:
+        """The ring's counters since it started (:data:`STATS_FIELDS`)."""
+        if not self._handle:
+            raise ValueError("the loader is closed")
+        out = np.zeros(len(STATS_FIELDS), np.int64)
+        self._lib.dvf_loader_stats(self._handle, _ptr(out, ctypes.c_int64), out.size)
+        return dict(zip(STATS_FIELDS, out.tolist()))
 
     def __iter__(self) -> Iterator:
         while True:

@@ -114,6 +114,12 @@ def prefetch_to_device(it: Iterator[Batch], device: str | torch.device | None = 
     current stream. On the CPU there is no pinned memory and no stream:
     the thread only turns the arrays into tensors.
 
+    It records no span of its own (``utils.spans``): the consumer's wait
+    on its queue is ``fit``'s ``fit.data_wait``, and of the producer's
+    work only the native ring's counters (``ring.*``, added by
+    ``data.kitti``'s ring iterator on this thread) are seen; the
+    stacking and the pinned upload are not.
+
     Failure semantics (as the reference's): an exception in the producer
     (a corrupt PNG, say) re-raises in the consumer instead of passing for
     the end of the data; a consumer that abandons the generator stops the

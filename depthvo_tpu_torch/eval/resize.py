@@ -5,7 +5,7 @@ The reference resizes each float32 prediction with
 ``PIL.Image.fromarray(p, mode="F").resize((W, H), Image.BILINEAR)``. The
 card's machine has no Pillow, so this is that function in numpy, step
 for step (Pillow's ``Resample.c``, the filter that
-``native/dataloader.cpp`` also copies for uint8 frames):
+``data/csrc/dataloader.cpp`` also copies for uint8 frames):
 
 * separable: the horizontal pass first, then the vertical one, with a
   float32 image between them;

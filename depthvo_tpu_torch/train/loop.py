@@ -68,6 +68,7 @@ from depthvo_tpu_torch.train.state import (
     make_optimizer,
     param_tree,
 )
+from depthvo_tpu_torch.utils import spans
 from depthvo_tpu_torch.utils.device import resolve_device
 from depthvo_tpu_torch.utils.images import to_unit
 
@@ -564,27 +565,30 @@ class _GraphedSteps:
         return metrics
 
     def __call__(self, state: TrainState, stacked: Dict[str, torch.Tensor]):
-        plans, opt_states = [], []
-        opt_state = state.opt_state
-        for _ in range(_steps_in(stacked)):
-            hyper, opt_state = self.tx.plan(opt_state)
-            plans.append(hyper)
-            opt_states.append(opt_state)
-        table = _hyper_table(plans, self.device)
-        self._bind(state, stacked)
-        for k, hyper in enumerate(plans):
-            for name, t in self.batch.items():
-                t.copy_(stacked[name][k])
-            captured = self.graphs.get(optim.hyper_key(hyper))
-            if captured is None:
-                metrics = self._warm_up_and_capture(state, hyper, table[k])
-            else:
-                captured.scalars.copy_(table[k, :captured.scalars.numel()])
-                captured.graph.replay()
-                warp_kernels.LAUNCHES.update(captured.launches)
-                metrics = captured.metrics
-            state.opt_state = opt_states[k]
-            state.step += 1
+        with spans.span("graph.plan"):
+            plans, opt_states = [], []
+            opt_state = state.opt_state
+            for _ in range(_steps_in(stacked)):
+                hyper, opt_state = self.tx.plan(opt_state)
+                plans.append(hyper)
+                opt_states.append(opt_state)
+            table = _hyper_table(plans, self.device)
+        with spans.span("graph.bind"):
+            self._bind(state, stacked)
+        with spans.span("graph.replay"):
+            for k, hyper in enumerate(plans):
+                for name, t in self.batch.items():
+                    t.copy_(stacked[name][k])
+                captured = self.graphs.get(optim.hyper_key(hyper))
+                if captured is None:
+                    metrics = self._warm_up_and_capture(state, hyper, table[k])
+                else:
+                    captured.scalars.copy_(table[k, :captured.scalars.numel()])
+                    captured.graph.replay()
+                    warp_kernels.LAUNCHES.update(captured.launches)
+                    metrics = captured.metrics
+                state.opt_state = opt_states[k]
+                state.step += 1
         # The replays' outputs are overwritten by the next call.
         return state, {k: v.clone() for k, v in metrics.items()}
 
@@ -756,6 +760,13 @@ def fit(
     ``sigint_effect`` / ``sighup_effect`` are :class:`SolverSignals`'
     actions.
 
+    With ``utils.spans`` enabled, each call records the spans
+    ``fit.data_wait`` (the wait for its batch: the prefetch queue, or
+    ``data_iter`` itself with ``prefetch=0``), ``fit.call`` (the step
+    function; with K > 1 on a GPU, inside it, ``graph.plan``,
+    ``graph.bind`` and ``graph.replay``) and, for a logged call,
+    ``fit.log`` (the metrics' host read and ``log_fn``).
+
     ``debug_nans`` checks, after each call of ``steps_per_call`` steps and
     before that state is logged, validated or snapshotted, that the call's
     metrics and every parameter and BatchNorm statistic are finite: one
@@ -850,7 +861,10 @@ def fit(
                         log_fn(state.step - 1, {f"signal/{action}": 1.0})
                     if action == "stop":
                         break
-                state, metrics = step_fn(state, next(batches))
+                with spans.span("fit.data_wait"):
+                    batch = next(batches)
+                with spans.span("fit.call"):
+                    state, metrics = step_fn(state, batch)
                 i = state.step
                 if check_finite is not None:
                     check_finite(metrics, i - 1)
@@ -860,11 +874,12 @@ def fit(
                     steady_base = i
                 last = i - 1
                 if log_fn is not None and (last % config.log_every < K or i >= num_steps):
-                    logged = {k: float(v) for k, v in metrics.items()}
-                    logged["steps_per_sec"] = (i - steady_base) / max(
-                        time.perf_counter() - steady_t0, 1e-9
-                    )
-                    log_fn(last, logged)
+                    with spans.span("fit.log"):
+                        logged = {k: float(v) for k, v in metrics.items()}
+                        logged["steps_per_sec"] = (i - steady_base) / max(
+                            time.perf_counter() - steady_t0, 1e-9
+                        )
+                        log_fn(last, logged)
                 if eval_fn is not None and ((last + 1) % eval_every < K or i >= num_steps):
                     val = run_validation(eval_fn, state.models, eval_iter, eval_steps, mesh)
                     if log_fn is not None:

@@ -16,9 +16,9 @@ the reference's ``train_step_scan`` mode) or ``make_eval_step``
 (traced, so with the profiler's overhead), device kernel time per step
 and the busy share of the wall time, kernel launches per step (all
 kernels, and the warp kernels' own counters), the device time by
-category (the warp kernels, convolutions, matrix products, copies, the
-rest), each warp kernel's device time, and the kernels that take the
-most device time, all per step; then, for one more step with the
+category (the warp kernels, BatchNorm, convolutions, matrix products,
+copies, the rest), each warp kernel's device time, and the kernels that
+take the most device time, all per step; then, for one more step with the
 allocator's history on, its peak of allocated bytes and the bytes live
 at that peak by the line of this package that allocated them (with
 K > 1 instead: the peak allocated over the first call, which captures
@@ -54,14 +54,20 @@ from depthvo_tpu_torch.data.synthetic import SyntheticScenes
 from depthvo_tpu_torch.ops import warp_kernels
 from depthvo_tpu_torch.train import loop
 from depthvo_tpu_torch.train.state import build_models, create_state, init_params, load_params
+from depthvo_tpu_torch.utils import spans
 from depthvo_tpu_torch.utils.device import resolve_device
 
 WARP_KERNELS = ("stereo_fwd_pyramid_kernel", "stereo_bwd_u_pyramid_kernel",
                 "stereo_bwd_src_kernel", "gen_fwd_pyramid_kernel", "gen_bwd_uv_kernel")
 _CATEGORIES = (
     ("warp_kernels", WARP_KERNELS),
-    ("memcpy", ("memcpy",)),
-    ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop")),
+    ("memcpy", ("memcpy", "memset")),
+    # Before the convolution keys, which would claim cuDNN's BatchNorm
+    # kernels by their ``cudnn`` prefix. ``bn_`` takes cuDNN's (bn_fw_*,
+    # bn_bw_*) and the port's own (ops/csrc/batch_norm.cu's bn_*_kernel).
+    ("batch_norm", ("bn_", "batch_norm", "batchnorm")),
+    ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop", "dgrad",
+                     "wgrad")),
     ("matmul", ("gemm", "cutlass", "cublas")),
 )
 
@@ -512,8 +518,9 @@ def depth_layer_table(
 @contextlib.contextmanager
 def maybe_trace(trace_dir: str | None):
     """``torch.profiler`` over the block (the card's kernels too, where
-    there is one), written as a Chrome trace to ``trace_dir/trace.json``;
-    a no-op when ``trace_dir`` is None."""
+    there is one), written as a Chrome trace to ``trace_dir/trace.json``,
+    with ``utils.spans`` enabled in it so that the trace holds the port's
+    ``depthvo.*`` ranges; a no-op when ``trace_dir`` is None."""
     if trace_dir is None:
         yield
         return
@@ -523,8 +530,15 @@ def maybe_trace(trace_dir: str | None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
+    was_on = spans.enabled()
+    spans.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        spans.enable(was_on)
+        if not was_on:
+            spans.reset()  # the trace holds them; nothing else reads them
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 

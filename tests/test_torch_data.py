@@ -11,6 +11,7 @@ same C++ source; the reference is pointed at the library the port
 builds). Everything compared here is exact.
 """
 
+import glob
 import os
 import shutil
 import threading
@@ -29,6 +30,7 @@ from depthvo_tpu_torch.data import kitti as tkitti, native_loader as tnative
 from depthvo_tpu_torch.data.eigen import EIGEN_TEST_SCENES as T_EIGEN
 from depthvo_tpu_torch.data.pipeline import batch_iterator, prefetch_to_device
 from depthvo_tpu_torch.io import checkpoint as ckpt
+from depthvo_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 torch.exp(torch.zeros(1))  # MKL's first call on one thread (test_torch_models.py)
@@ -98,7 +100,8 @@ def odom_tree(tmp_path_factory):
 
 def _use_native(monkeypatch):
     """Both packages on the native library that the port builds (the
-    reference loads the same file)."""
+    reference loads the same file: the port's copy of the reference's
+    source, whose decode and resize it leaves as they are)."""
     monkeypatch.setenv("DEPTHVO_NATIVE_LIB", str(tnative.build()))
     monkeypatch.setattr(jnative, "_lib", None)
     monkeypatch.setattr(jkitti, "_NATIVE", None)
@@ -179,6 +182,45 @@ def test_native_ring_batches_equal_the_thread_pool_samples(raw_tree, monkeypatch
             for k in ("image_r", "image_s", "K", "baseline"):
                 np.testing.assert_array_equal(b[k][j], s[k], err_msg=k)
     ring.close()
+
+
+def test_native_ring_adds_its_counters_to_the_spans(raw_tree, monkeypatch):
+    _use_native(monkeypatch)
+    _, tds = _datasets("raw", raw_tree, None)
+    spans.reset()
+    spans.enable()
+    try:
+        ring = tds.iterator(3, seed=1, native_ring=True)
+        for _ in range(4):
+            next(ring)
+        ring.close()
+        counters = spans.take()["counters"]
+    finally:
+        spans.enable(False)
+        spans.reset()
+    assert set(counters) == {"ring." + name for name in tnative.STATS_FIELDS}
+    assert counters["ring.batches"] == 4 and counters["ring.images"] >= 4 * 9
+    assert counters["ring.decode_ns"] > 0 and counters["ring.resize_ns"] > 0
+    assert 0 < counters["ring.work_cpu_ns"] <= counters["ring.decode_ns"] + counters[
+        "ring.resize_ns"]
+
+
+def test_native_ring_stats_in_field_order_until_closed(raw_tree):
+    paths = sorted(glob.glob(os.path.join(raw_tree, DRIVES[0][:10], DRIVES[0], "image_02",
+                                          "data", "*.png")))
+    loader = tnative.NativeBatchLoader(paths, batch_size=2, height=16, width=48,
+                                       num_threads=2, shuffle=False)
+    try:
+        for _ in range(3):
+            loader.next()
+        stats = loader.stats()
+    finally:
+        loader.close()
+    assert tuple(stats) == tnative.STATS_FIELDS
+    assert stats["batches"] == 3 and stats["images"] >= 3 * 2
+    assert stats["consumer_wait_ns"] >= 0
+    with pytest.raises(ValueError, match="closed"):
+        loader.stats()
 
 
 def test_native_decode_and_header_size(raw_tree):

@@ -178,6 +178,17 @@ def test_profiling_sorts_kernels_and_unions_busy_time():
         "void (anonymous namespace)::gen_fwd_pyramid_kernel<false>(SegmentTable)"
     ) == "warp_kernels"
     assert profiling.category("sm90_xmma_fprop_implicit_gemm_bf16") == "convolution"
+    # cuDNN's BatchNorm kernels, whose `cudnn` prefix the convolution keys would claim.
+    assert profiling.category("void cudnn::bn_fw_tr_1C11_kernel_NCHW<__nv_bfloat16>") == (
+        "batch_norm")
+    assert profiling.category(
+        "void at::native::batch_norm_collect_statistics_channels_last_kernel") == "batch_norm"
+    # The port's own (ops/csrc/batch_norm.cu), every one of them.
+    for kernel in ("bn_stats_partial_kernel", "bn_sum_partials_kernel", "bn_normalize_kernel",
+                   "bn_bwd_partial_kernel", "bn_bwd_elemt_kernel"):
+        assert profiling.category(f"void (anonymous namespace)::{kernel}<float, 4>") == (
+            "batch_norm")
+    assert profiling.category("[CUDA memset (Device)]") == "memcpy"
     assert profiling.category("Memcpy HtoD (Pageable -> Device)") == "memcpy"
     assert profiling.category("ampere_bf16_s16816gemm_128x64") == "matmul"
     assert profiling.category("vectorized_elementwise_kernel") == "other"
