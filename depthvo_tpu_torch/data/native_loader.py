@@ -3,7 +3,7 @@
 ``native/dataloader.cpp`` with the ring's counters added; counterpart of
 ``depthvo_tpu/data/native_loader.py``).
 
-The C++ source decodes PNGs (zlib inflate and per-scanline unfilter),
+The C++ source decodes PNGs (its own inflate and a per-row unfilter),
 resizes them with PIL's triangle filter and runs a multi-threaded
 prefetch ring of ready batches; Python only copies finished buffers.
 Batches come out as [-1, 1] float32 or raw uint8 (the small host->device
@@ -14,10 +14,12 @@ The ring counts its work, always (atomics, a few clock reads an image):
 ring started: ``batches`` served, ``consumer_wait_ns`` (``next()``
 blocked until its batch was ready), ``images`` decoded, ``decode_ns``
 and ``resize_ns`` (the workers' wall time in PNG decode and in the
-resize, summed over workers) and ``work_cpu_ns`` (their thread CPU time
+resize, summed over workers), ``work_cpu_ns`` (their thread CPU time
 over the same intervals: under ``decode_ns + resize_ns`` where the
-workers waited for a core). ``data.kitti``'s ring iterator adds them to
-``utils.spans`` as ``ring.<field>``.
+workers waited for a core) and ``inflate_ns`` (their wall time in the
+decode's inflate, a part of ``decode_ns``; the rest is the file read, the
+IDAT gather and the unfilter). ``data.kitti``'s ring iterator adds them
+to ``utils.spans`` as ``ring.<field>``.
 
 The port builds its library from that source in the checkout, with
 ``g++`` and ``-march=native`` as the repo's Makefile does, into
@@ -48,7 +50,7 @@ LDFLAGS = ["-lz", "-lpthread"]
 
 # dvf_loader_stats' fields, in csrc/dataloader.cpp's Stat order.
 STATS_FIELDS = ("batches", "consumer_wait_ns", "images", "decode_ns", "resize_ns",
-                "work_cpu_ns")
+                "work_cpu_ns", "inflate_ns")
 
 _lib = None
 

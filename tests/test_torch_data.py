@@ -203,6 +203,7 @@ def test_native_ring_adds_its_counters_to_the_spans(raw_tree, monkeypatch):
     assert counters["ring.decode_ns"] > 0 and counters["ring.resize_ns"] > 0
     assert 0 < counters["ring.work_cpu_ns"] <= counters["ring.decode_ns"] + counters[
         "ring.resize_ns"]
+    assert 0 < counters["ring.inflate_ns"] <= counters["ring.decode_ns"]
 
 
 def test_native_ring_stats_in_field_order_until_closed(raw_tree):
@@ -219,6 +220,7 @@ def test_native_ring_stats_in_field_order_until_closed(raw_tree):
     assert tuple(stats) == tnative.STATS_FIELDS
     assert stats["batches"] == 3 and stats["images"] >= 3 * 2
     assert stats["consumer_wait_ns"] >= 0
+    assert 0 < stats["inflate_ns"] <= stats["decode_ns"]
     with pytest.raises(ValueError, match="closed"):
         loader.stats()
 
