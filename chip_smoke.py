@@ -69,8 +69,8 @@ with a nonzero exit code:
    border  - Monodepth2's border warp (``gen_fwd_border``,
              ``gen_bwd_uv_border``) against ``F.grid_sample`` and its
              backward at 12x3x320x1024; kernel, library, K4/K5 and bound ms.
-   reproj  - Monodepth2's reprojection error (``reproj_ssim_l1_fwd_kernel``,
-             ``reproj_ssim_l1_bwd_kernel``) against its plain versions on
+   reproj  - Monodepth2's reprojection error (``reproj_fwd``,
+             ``reproj_bwd``) against its plain versions on
              the card at 12x3x320x1024, 12x3x192x640, 2x3x5x17 and four
              small shapes whose bands and tiles end one row or column
              past a multiple (and on the CPU at the small ones), on smooth images with flat patches, an
@@ -354,8 +354,12 @@ import subprocess
 import sys
 import time
 
-# The package's CUDA-graph replay timer (every kernel time below).
-from depthvo_tpu_torch.utils.profiling import device_ms  # noqa: E402
+# The package's kernel tables and launch ledger, its CUDA-graph replay
+# timer (every kernel time below) and its profiler-trace reduction.
+from depthvo_tpu_torch import ops
+from depthvo_tpu_torch.ops import _build, batch_norm as bn, reproj as rp, warp_kernels as wk
+from depthvo_tpu_torch.utils import profiling
+from depthvo_tpu_torch.utils.profiling import device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -434,7 +438,6 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from depthvo_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     libs = _build.build()
@@ -469,13 +472,11 @@ def phase_kernels(cfg, dev):
     import torch
     import torch.nn.functional as F
 
-    from depthvo_tpu_torch import ops
     from depthvo_tpu_torch.configs.base import stereo_dmax
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
     from depthvo_tpu_torch.geometry import se3
     from depthvo_tpu_torch.geometry.camera import scale_intrinsics
     from depthvo_tpu_torch.models.layers import resize_bilinear_chw
-    from depthvo_tpu_torch.ops import warp_kernels as wk
 
     scenes = SyntheticScenes(cfg, seed=3, num_scenes=BATCH)
     scene = {k: torch.as_tensor(np.stack([s[k] for s in scenes._scenes])).to(dev)
@@ -778,8 +779,6 @@ def phase_border(dev):
     kernels) and the library."""
     import torch
 
-    from depthvo_tpu_torch.ops import warp_kernels as wk
-
     B, C, H, W = 12, 3, 320, 1024
     g = torch.Generator(device=dev).manual_seed(19)
     src = torch.rand(B, C, H, W, generator=g, device=dev)
@@ -873,8 +872,6 @@ def phase_reproj(dev):
     composition's, forward alone and forward with autograd's backward."""
     import torch
 
-    from depthvo_tpu_torch.ops import reproj as rp
-
     w = 0.85
     rows = []
     for (B, C, H, W) in ((12, 3, 320, 1024), (12, 3, 192, 640), (2, 3, 5, 17), (1, 3, 2, 2),
@@ -935,49 +932,31 @@ def phase_reproj(dev):
     return rows
 
 
-def _top_kernels(run, steps: int, n: int = 25) -> list:
-    """The ``n`` kernels that take most device time in one traced
-    ``run()`` of ``steps`` steps: [name (its first 90 characters), ms a
-    step, launches a step], largest first."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    by = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name[:90]][0] += (e.time_range.end - e.time_range.start) / 1e3 / steps
-            by[e.name[:90]][1] += 1
-    return sorted(([k, v[0], v[1] / steps] for k, v in by.items()), key=lambda r: -r[1])[:n]
-
-
 def phase_md2(dev, smi: str, steps: int = 24):
     """Monodepth2 (``monodepth2_ms``, 1024x320, batch 12) on the main path:
     ``cli train`` with 8 steps a call (the CUDA graph) counts 12 border
     forwards and 12 backwards, and 15 reprojection errors forward and 12
     backward, a step; then the graphed step's ms, the allocator's peak and
-    the kernels that take most of a traced call's device time."""
+    the kernels that take most of a traced call's device time: [name (its
+    first 90 characters), ms a step, launches a step], largest first."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from depthvo_tpu_torch import cli
     from depthvo_tpu_torch.configs.base import monodepth2_ms
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop
     from depthvo_tpu_torch.train.state import create_state
 
-    wk.reset_launches()
+    _build.reset_launches()
     argv = ["train", "--variant", "monodepth2_ms", "--steps", "16", "--steps-per-call", "8",
             "--device", "cuda", "--log-every", "8"]
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(argv)
     assert rc == 0, printed.getvalue()[-2000:]
-    launches = {k: wk.launch_count(k) for k in ("gen_fwd_border", "gen_bwd_uv_border",
-                                                 "reproj_fwd", "reproj_bwd")}
+    launches = {k: _build.launch_count(k) for k in ("gen_fwd_border", "gen_bwd_uv_border",
+                                                     "reproj_fwd", "reproj_bwd")}
     assert launches == {"gen_fwd_border": 12 * 16, "gen_bwd_uv_border": 12 * 16,
                         "reproj_fwd": 15 * 16, "reproj_bwd": 12 * 16}, launches
     cfg = monodepth2_ms()
@@ -994,7 +973,11 @@ def phase_md2(dev, smi: str, steps: int = 24):
     torch.cuda.synchronize(dev)
     ms = 1e3 * (time.perf_counter() - t0) / (steps // 8 * 8)
     peak = torch.cuda.max_memory_allocated(dev)
-    top = _top_kernels(lambda: step(state, batch), 8)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    top = [[name, us / 1e3 / 8, c / 8] for name, us, c in
+           profiling.heaviest_kernels(profiling.device_kernels(prof)[0], 25, 90)]
     row = {"phase": "md2", "argv": argv, "launches": launches, "top_kernels": top,
            "log": [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")],
            "graph_ms_per_step": ms, "frames_per_s": cfg.batch_size * 1e3 / ms,
@@ -1046,8 +1029,6 @@ def _bn_rows(cfg, dev) -> list:
     plain version, SyncBatchNorm's library calls (timed only) and the byte
     bound."""
     import torch
-
-    from depthvo_tpu_torch.ops import batch_norm as bn
 
     shapes = bn_shapes(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -1137,8 +1118,6 @@ def _bn_timing(layers, dtype, worst, abs_errs, clamped, m, eps) -> list:
     beside the byte bound."""
     import torch
 
-    from depthvo_tpu_torch.ops import batch_norm as bn
-
     size = torch.empty((), dtype=dtype).element_size()
     elems = sum(d["x"].numel() for d in layers)
     chans = sum(d["C"] for d in layers)
@@ -1216,17 +1195,11 @@ def _f32_config(cfg):
     )
 
 
-KERNELS = ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_aux",
-           "gen_bwd_uv")
-
-
 def _check_counts(per_call: dict, n_calls: int) -> dict:
     """Launches since the last reset: ``per_call[k]`` of kernel k per
     batch or step, none of the others."""
-    from depthvo_tpu_torch.ops import warp_kernels as wk
-
-    counts = {k: wk.launch_count(k) for k in KERNELS}
-    want = {k: per_call.get(k, 0) * n_calls for k in KERNELS}
+    counts = {k: _build.launch_count(k) for k in wk.KERNELS}
+    want = {k: per_call.get(k, 0) * n_calls for k in wk.KERNELS}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     return counts
@@ -1249,7 +1222,6 @@ def phase_slice(variant: str, dev):
 
     from depthvo_tpu_torch import cli, configs
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop
     from depthvo_tpu_torch.train.state import build_models, init_params, load_params
 
@@ -1274,7 +1246,7 @@ def phase_slice(variant: str, dev):
     if set(gpu) != set(cpu) or not max(rel.values()) <= METRIC_RTOL:
         raise AssertionError(f"card vs CPU metrics: {gpu} vs {cpu}")
     out["f32_vs_cpu_max_rel"] = max(rel.values())
-    wk.reset_launches()
+    _build.reset_launches()
     f32 = loop.run_validation(eval_fn, models, iter(batches), len(batches))
     out["f32_launches"] = _check_counts(_eval_launches(cfg), len(batches))
     out["f32_metrics"] = f32
@@ -1285,11 +1257,11 @@ def phase_slice(variant: str, dev):
     argv = ["test", "--variant", variant, "--iterations", "4",
             "--batch-size", str(BATCH), "--device", "cuda"]
     printed = io.StringIO()
-    wk.reset_launches()
+    _build.reset_launches()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(argv)
     launches = _check_counts(_eval_launches(cfg), 4)
-    by_shape = {f"{k} {list(shape)}": n for (k, shape), n in sorted(wk.LAUNCHES.items())}
+    by_shape = {f"{k} {list(shape)}": n for (k, shape), n in sorted(_build.LAUNCHES.items())}
     text = printed.getvalue()
     metrics = json.loads(text[text.index("{"):])
     if rc != 0 or not all(map(math.isfinite, metrics.values())):
@@ -1345,7 +1317,6 @@ def phase_train(variant: str, dev):
     from depthvo_tpu_torch.configs.base import stereo_dmax
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
     from depthvo_tpu_torch.geometry import se3
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop
     from depthvo_tpu_torch.train.state import (
         TrainState, build_models, create_state, init_params, load_params,
@@ -1414,7 +1385,7 @@ def phase_train(variant: str, dev):
     argv = ["train", "--variant", variant, "--steps", str(steps), "--batch-size", str(BATCH),
             "--device", "cuda", "--log-every", "1"]
     printed = io.StringIO()
-    wk.reset_launches()
+    _build.reset_launches()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(argv)
     launches = _check_counts(_train_launches(cfg), steps)
@@ -1426,7 +1397,7 @@ def phase_train(variant: str, dev):
     out["main_path"] = {
         "argv": argv, "launches": launches,
         "launches_by_shape": {f"{k} {list(shape)}": n
-                              for (k, shape), n in sorted(wk.LAUNCHES.items())},
+                              for (k, shape), n in sorted(_build.LAUNCHES.items())},
         "losses": [{k: float(m[k]) for k in m if k.startswith(("loss/", "grad/"))}
                    for m in logged],
     }
@@ -1511,39 +1482,21 @@ def _hold_step(got, want, own_g, what: str, need_stable: bool = True) -> dict:
             "bn_stats_max_rel": stat_err, "metrics": got_m}
 
 
-WARP_KERNEL_NAMES = {  # the kernels' names in a profiler trace
-    "stereo_fwd": "stereo_fwd_pyramid_kernel",
-    "stereo_bwd_u": "stereo_bwd_u_pyramid_kernel",
-    "stereo_bwd_src": "stereo_bwd_src_kernel",
-    "gen_fwd": "gen_fwd_pyramid_kernel<false>",
-    "gen_fwd_aux": "gen_fwd_pyramid_kernel<true>",
-    "gen_bwd_uv": "gen_bwd_uv_kernel",
-}
 SCAN_K = 8
 # The global BatchNorm's device kernels in a profiler trace, per layer and
-# train step over a mesh: bn_stats and bn_bwd_reduce launch their partial
-# sums and then the fixed-order sum of the partials.
-BN_TRACE_PER_LAYER = {"bn_stats_partial_kernel": 1, "bn_sum_partials_kernel": 2,
-                      "bn_normalize_kernel": 1, "bn_bwd_partial_kernel": 1,
-                      "bn_bwd_elemt_kernel": 1}
+# train step over a mesh: each launch runs its kernels of bn.KERNELS once,
+# so the fixed-order sum of the partials, which bn_stats and bn_bwd_reduce
+# both run, twice and the others once.
+BN_TRACE_PER_LAYER = dict(collections.Counter(
+    name for names in bn.KERNELS.values() for name in names))
 
 
 def _check_bn_counts(n: int) -> dict:
     """Launches since the last reset: each BatchNorm kernel ``n`` times."""
-    from depthvo_tpu_torch.ops import batch_norm as bn
-
-    counts = {k: bn.launch_count(k) for k in bn.KERNELS}
+    counts = {k: _build.launch_count(k) for k in bn.KERNELS}
     if counts != {k: n for k in bn.KERNELS}:
         raise AssertionError(f"BatchNorm kernel launches {counts}, expected {n} each")
     return counts
-
-
-def _bn_traced(prof, steps: int) -> dict:
-    """The BatchNorm device kernels per step in a profiler trace."""
-    import torch
-
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {k: sum(k in name for name in names) / steps for k in BN_TRACE_PER_LAYER}
 
 
 def _state_leaves(state) -> dict:
@@ -1572,20 +1525,17 @@ def _traced_call(run, steps: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from depthvo_tpu_torch.utils.profiling import _busy_us
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name, busy = profiling.device_kernels(prof)
     return {
-        "warp_kernels": {k: sum(name in e.name for e in kernels)
-                         for k, name in WARP_KERNEL_NAMES.items()},
-        "kernels_per_step": len(kernels) / steps,
+        "warp_kernels": {k: profiling.matching(by_name, names)[1]
+                         for k, names in wk.KERNELS.items()},
+        "kernels_per_step": sum(c for _, c in by_name.values()) / steps,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "traced_wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_share": busy / wall_us,
@@ -1608,7 +1558,6 @@ def _graph_vs_eager(cfg32, params, host, dev, mesh=None) -> dict:
     last metrics and the call's launches (its state is freed on return)."""
     import torch
 
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop
     from depthvo_tpu_torch.train.state import TrainState, build_models, load_params, \
         make_optimizer, param_tree
@@ -1617,10 +1566,10 @@ def _graph_vs_eager(cfg32, params, host, dev, mesh=None) -> dict:
         models = load_params(build_models(cfg32), params, dev).train()
         return TrainState(0, models, make_optimizer(cfg32).init(param_tree(models)))
 
-    wk.reset_launches()
+    _build.reset_launches()
     graphed, g_metrics = loop.make_scan_train_step(cfg32, mesh, device=dev)(
         fresh(), loop.stack_batches(host))
-    g_launches = {k: wk.launch_count(k) for k in KERNELS}
+    g_launches = {k: _build.launch_count(k) for k in wk.KERNELS}
     eager, step = fresh(), loop.make_train_step(cfg32, mesh, device=dev)
     for b in host:
         eager, e_metrics = step(eager, b)
@@ -1664,7 +1613,6 @@ def _unroll_vs_1(cfg32, params, host, dev) -> dict:
     1, and K x the step's launches."""
     import torch
 
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop
 
     runs, K = {}, len(host)
@@ -1672,7 +1620,7 @@ def _unroll_vs_1(cfg32, params, host, dev) -> dict:
     for unroll in (1, 2, 4):
         gc.collect()
         torch.cuda.empty_cache()
-        wk.reset_launches()
+        _build.reset_launches()
         state, metrics = loop.make_scan_train_step(cfg32, unroll=unroll, device=dev)(
             _fresh_state(cfg32, params, dev), stacked)
         torch.cuda.synchronize()
@@ -1723,7 +1671,6 @@ def phase_scan(variant: str, dev, smi: str):
     from depthvo_tpu_torch import cli, configs
     from depthvo_tpu_torch.data import kitti
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop
     from depthvo_tpu_torch.train.state import create_state, init_params
 
@@ -1797,10 +1744,10 @@ def phase_scan(variant: str, dev, smi: str):
         memory = {"first_call_peak_allocated_bytes": first_peak,
                   "steady_peak_allocated_bytes": torch.cuda.max_memory_allocated(),
                   "graph_pool_bytes": _private_pool_bytes()}
-        wk.reset_launches()
+        _build.reset_launches()
         traced = _traced_call(call, SCAN_K)
-        counts = {k: wk.launch_count(k) for k in KERNELS}
-        want = {k: _train_launches(cfg).get(k, 0) * SCAN_K for k in KERNELS}
+        counts = {k: _build.launch_count(k) for k in wk.KERNELS}
+        want = {k: _train_launches(cfg).get(k, 0) * SCAN_K for k in wk.KERNELS}
         if traced["warp_kernels"] != want or counts != want:
             raise AssertionError(f"{mode}: one call of {SCAN_K} steps ran "
                                  f"{traced['warp_kernels']} (counters {counts}), expected {want}")
@@ -1830,7 +1777,7 @@ def phase_scan(variant: str, dev, smi: str):
 
     argv = train_argv(steps)
     printed = io.StringIO()
-    wk.reset_launches()
+    _build.reset_launches()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(argv)
     launches = _check_counts(_train_launches(cfg), steps)
@@ -1904,7 +1851,6 @@ def _learn_run(cfg, dev) -> dict:
 
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
     from depthvo_tpu_torch.eval import synthetic
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop
     from depthvo_tpu_torch.train.state import create_state
 
@@ -1923,7 +1869,7 @@ def _learn_run(cfg, dev) -> dict:
     scan = loop.make_scan_train_step(cfg, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wk.reset_launches()
+    _build.reset_launches()
     ms, memory, held = [], {}, {}
     calls = LEARN_STEPS // SCAN_K
     for call in range(1, calls + 1):
@@ -1939,7 +1885,7 @@ def _learn_run(cfg, dev) -> dict:
             torch.cuda.reset_peak_memory_stats()
         if state.step in LEARN_MARKS[1:-1]:
             held[state.step] = copy.deepcopy(state.models)  # scored after the run
-    counts = {k: wk.launch_count(k) for k in KERNELS}
+    counts = {k: _build.launch_count(k) for k in wk.KERNELS}
     for step, models in held.items():
         losses[step] = _train_losses(cfg, models, batch)
     losses[LEARN_STEPS] = _train_losses(cfg, state.models, batch)
@@ -1973,7 +1919,7 @@ def phase_learn(variant: str, dev, smi: str):
                               "a target")}
     main = _learn_run(cfg, dev)
     after = main[f"step_{LEARN_STEPS}"]
-    want = {k: float(_train_launches(cfg).get(k, 0)) for k in KERNELS}
+    want = {k: float(_train_launches(cfg).get(k, 0)) for k in wk.KERNELS}
     pools = [m["graph_pool_bytes"] for m in main["memory"].values()]
     gates = {
         "losses_finite": all(math.isfinite(v) for m in main["losses_after_steps"].values()
@@ -2069,7 +2015,6 @@ def phase_kitti_ckpt(variant: str, dev, smi: str, premade_ms: float):
     from depthvo_tpu_torch.configs import base as config_base
     from depthvo_tpu_torch.data import kitti
     from depthvo_tpu_torch.io import checkpoint as ckpt
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop, state as tstate
 
     cfg = getattr(configs, variant)(batch_size=BATCH)
@@ -2098,7 +2043,7 @@ def phase_kitti_ckpt(variant: str, dev, smi: str, premade_ms: float):
         return argv, steps_seen, logged, seconds
 
     # (2) Train 2 steps from disk and snapshot: the main path.
-    wk.reset_launches()
+    _build.reset_launches()
     argv, seen, logged, seconds = train(2, "--checkpoint-dir", ck)
     launches = _check_counts(_train_launches(cfg), 2)
     mgr = ckpt.make_manager(ck)
@@ -2128,7 +2073,7 @@ def phase_kitti_ckpt(variant: str, dev, smi: str, premade_ms: float):
 
     loop.batch_to_device = spy
     try:
-        wk.reset_launches()
+        _build.reset_launches()
         _, seen, _, _ = train(4, "--checkpoint-dir", ck)
         _check_counts(_train_launches(cfg), 2)
     finally:
@@ -2284,7 +2229,6 @@ def phase_orbax(variant: str, dev, smi: str):
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
     from depthvo_tpu_torch.io import checkpoint as ckpt, orbax_reader
     from depthvo_tpu_torch.io.from_jax import params_from_jax
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop
     from depthvo_tpu_torch.train.state import create_state, param_tree
 
@@ -2343,7 +2287,7 @@ def phase_orbax(variant: str, dev, smi: str):
     scenes = SyntheticScenes(cfg, seed=cfg.seed, u8=True)
     stacked = loop.batch_to_device(loop.stack_batches(
         [scenes.batch(BATCH) for _ in range(SCAN_K)]), dev)
-    wk.reset_launches()
+    _build.reset_launches()
     state, metrics = loop.make_scan_train_step(cfg, device=dev)(state, stacked)
     torch.cuda.synchronize()
     launches = _check_counts(_train_launches(cfg), SCAN_K)
@@ -2362,7 +2306,7 @@ def phase_orbax(variant: str, dev, smi: str):
     from depthvo_tpu_torch import cli
 
     printed = io.StringIO()
-    wk.reset_launches()
+    _build.reset_launches()
     with contextlib.redirect_stdout(printed):
         rc = cli.main(argv)
     lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")]
@@ -2534,7 +2478,6 @@ def phase_eval(variant: str, dev, smi: str):
     from depthvo_tpu_torch.eval.odometry import read_kitti_poses
     from depthvo_tpu_torch.eval.resize import resize_bilinear_f32
     from depthvo_tpu_torch.io import checkpoint as ckpt
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop, state as tstate
 
     cfg = getattr(configs, variant)(batch_size=BATCH)
@@ -2578,7 +2521,7 @@ def phase_eval(variant: str, dev, smi: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     common = ["eval-depth", "--kitti-root", root, "--split-file", split,
               "--checkpoint-dir", c32]
-    wk.reset_launches()
+    _build.reset_launches()
     card, card_s = _cli_json(common + ["--device", "cuda", "--save-preds", path("preds")])
     launches = _check_counts({}, 1)  # the eval path launches no warp kernel
     cpu, cpu_s = _cli_json(common + ["--device", "cpu"])
@@ -2752,7 +2695,6 @@ def _a5_checks(cfg, dev, images) -> dict:
     from depthvo_tpu_torch import DepthVO, cli
     from depthvo_tpu_torch.configs import base as config_base
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.train import loop, state as tstate
 
     backends = torch.backends
@@ -2778,7 +2720,7 @@ def _a5_checks(cfg, dev, images) -> dict:
             argv = ["train", "--config", cfg_path, "--steps", "2", "--device", "cuda",
                     "--log-every", "1"]
             printed = io.StringIO()
-            wk.reset_launches()
+            _build.reset_launches()
             with contextlib.redirect_stdout(printed):
                 rc = cli.main(argv)
             launches = _check_counts(_train_launches(hcfg), 2)
@@ -3352,11 +3294,9 @@ def phase_dp(variant: str, dev, smi: str):
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
     from depthvo_tpu_torch.eval.runner import predict_depths
     from depthvo_tpu_torch.models import layers
-    from depthvo_tpu_torch.ops import warp_kernels as wk
     from depthvo_tpu_torch.parallel import distributed as pdist, mesh as pmesh
     from depthvo_tpu_torch.train import loop
     from depthvo_tpu_torch.train.state import create_state, init_params
-    from depthvo_tpu_torch.utils.profiling import _busy_us
 
     cfg = getattr(configs, variant)(batch_size=BATCH)
     cfg32 = _f32_config(cfg)
@@ -3403,7 +3343,7 @@ def phase_dp(variant: str, dev, smi: str):
         step = loop.make_train_step(cfg, mesh, device=dev)
         step(state, host[0])
         torch.cuda.synchronize()
-        wk.reset_launches()
+        _build.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for b in host[:DP_PROFILED_STEPS]:
                 step(state, b)
@@ -3414,7 +3354,9 @@ def phase_dp(variant: str, dev, smi: str):
         # each BatchNorm kernel once per layer per step, in the counters
         # and in the trace
         bn_launches = _check_bn_counts(norms * DP_PROFILED_STEPS)
-        bn_traced = _bn_traced(prof, DP_PROFILED_STEPS)
+        by_name = profiling.device_kernels(prof)[0]
+        bn_traced = {k: profiling.matching(by_name, [k])[1] / DP_PROFILED_STEPS
+                     for k in BN_TRACE_PER_LAYER}
         if bn_traced != {k: n * norms for k, n in BN_TRACE_PER_LAYER.items()}:
             raise AssertionError(f"BatchNorm kernels per step in the trace {bn_traced}, "
                                  f"expected {BN_TRACE_PER_LAYER} x {norms}")
@@ -3440,7 +3382,7 @@ def phase_dp(variant: str, dev, smi: str):
         for name, m in (("mesh", mesh), ("plain", None), ("mesh_again", mesh)):
             gc.collect()
             torch.cuda.empty_cache()
-            wk.reset_launches()
+            _build.reset_launches()
             state = create_state(cfg, dev)
             scan = loop.make_scan_train_step(cfg, m, device=dev)
             ms = []
@@ -3453,18 +3395,16 @@ def phase_dp(variant: str, dev, smi: str):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 scan(state, stacked)
                 torch.cuda.synchronize()
-            kernels = [e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            nccl = [e for e in kernels if "nccl" in e.name.lower()]
+            by_name, busy = profiling.device_kernels(prof)
+            nccl = [v for k, v in by_name.items() if "nccl" in k.lower()]
             timing[name] = {
                 "ms_per_step_calls": ms, "ms_per_step": statistics.median(ms[1:]),
-                "traced_device_busy_ms_per_step": _busy_us(
-                    (e.time_range.start, e.time_range.end) for e in kernels) / SCAN_K / 1e3,
-                "traced_kernels_per_step": len(kernels) / SCAN_K,
-                "traced_nccl_per_step": len(nccl) / SCAN_K,
-                "traced_nccl_ms_per_step": sum(e.time_range.end - e.time_range.start
-                                               for e in nccl) / SCAN_K / 1e3,
-                "traced_bn_kernels_per_step": _bn_traced(prof, SCAN_K),
+                "traced_device_busy_ms_per_step": busy / SCAN_K / 1e3,
+                "traced_kernels_per_step": sum(c for _, c in by_name.values()) / SCAN_K,
+                "traced_nccl_per_step": sum(c for _, c in nccl) / SCAN_K,
+                "traced_nccl_ms_per_step": sum(us for us, _ in nccl) / SCAN_K / 1e3,
+                "traced_bn_kernels_per_step": {
+                    k: profiling.matching(by_name, [k])[1] / SCAN_K for k in BN_TRACE_PER_LAYER},
                 "bn_launches": _check_bn_counts(norms * 5 * SCAN_K if m is not None else 0),
                 "graph_pool_bytes": _private_pool_bytes()}
             del state, scan
@@ -3495,7 +3435,7 @@ def phase_dp(variant: str, dev, smi: str):
         # launches and each BatchNorm kernel once per layer per step.
         argv = ["train", "--variant", variant, "--steps", "2", "--batch-size", str(BATCH),
                 "--device", "cuda", "--log-every", "1"]
-        wk.reset_launches()
+        _build.reset_launches()
         with contextlib.redirect_stdout(io.StringIO()) as log:
             cli._rank_main(dev, cli.build_parser().parse_args(argv), "train")
         torch.cuda.synchronize()
@@ -3566,7 +3506,7 @@ def phase_dp(variant: str, dev, smi: str):
                              f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
     argv = ["train", "--variant", variant, "--steps", "2", "--batch-size", str(BATCH),
             "--device", "cuda", "--log-every", "1"]
-    wk.reset_launches()
+    _build.reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(argv)
     if rc != 0 or torch.distributed.is_initialized() or torch.cuda.device_count() != 1:
@@ -3711,11 +3651,9 @@ def _nhwc_warps(cfg, dev) -> dict:
     import numpy as np
     import torch
 
-    from depthvo_tpu_torch import ops
     from depthvo_tpu_torch.configs.base import stereo_dmax
     from depthvo_tpu_torch.data.synthetic import SyntheticScenes
     from depthvo_tpu_torch.geometry import se3
-    from depthvo_tpu_torch.ops import warp_kernels as wk
 
     H, W = cfg.model.height, cfg.model.width
     host = SyntheticScenes(cfg, seed=11, num_scenes=BATCH).fixed_batch(BATCH)
@@ -3733,12 +3671,12 @@ def _nhwc_warps(cfg, dev) -> dict:
     u, valid = wk.stereo_warp_prep((H, W), depth, fxb, dmax)
     g = G * valid[..., None]
     src_nhwc = src.clone().requires_grad_(True)
-    wk.reset_launches()
+    _build.reset_launches()
     warped, valid_n = ops.stereo_warp(src_nhwc, depth, fxb, dmax=dmax)
     (warped * g).sum().backward()
     torch.cuda.synchronize()
-    launches = {k: wk.launch_count(k) for k in KERNELS}
-    if launches != {**dict.fromkeys(KERNELS, 0), "stereo_fwd": 1, "stereo_bwd_src": 1}:
+    launches = {k: _build.launch_count(k) for k in wk.KERNELS}
+    if launches != {**dict.fromkeys(wk.KERNELS, 0), "stereo_fwd": 1, "stereo_bwd_src": 1}:
         raise AssertionError(f"NHWC stereo_warp launched {launches}")
     src_chw = src.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
     warped_c, valid_c = ops.stereo_warp_chw(src_chw, depth, fxb, dmax=dmax)
@@ -3773,12 +3711,12 @@ def _nhwc_warps(cfg, dev) -> dict:
     (grads["plain"],) = torch.autograd.grad([u, v], d, [d_u, d_v])
     plain = wk.gen_sample_plain(src.permute(0, 3, 1, 2).contiguous(), u.detach(), v.detach())
     d = depth.clone().requires_grad_(True)
-    wk.reset_launches()
+    _build.reset_launches()
     warped, valid_n = ops.frozen_warp(src, d, T, K, pad_v=pad_v)
     (warped * g).sum().backward()
     torch.cuda.synchronize()
-    launches = {k: wk.launch_count(k) for k in KERNELS}
-    if launches != {**dict.fromkeys(KERNELS, 0), "gen_fwd": 1, "gen_bwd_uv": 1}:
+    launches = {k: _build.launch_count(k) for k in wk.KERNELS}
+    if launches != {**dict.fromkeys(wk.KERNELS, 0), "gen_fwd": 1, "gen_bwd_uv": 1}:
         raise AssertionError(f"NHWC frozen_warp launched {launches}")
     grads["nhwc"] = d.grad
     d = depth.clone().requires_grad_(True)
@@ -3876,8 +3814,6 @@ def phase_bench(variant: str, dev, smi: str, scan_graph_ms: float, train_eager_m
     import torch
 
     from depthvo_tpu_torch import cli, configs
-    from depthvo_tpu_torch.ops import warp_kernels as wk
-    from depthvo_tpu_torch.utils import profiling
 
     cfg = getattr(configs, variant)(batch_size=BATCH)
     H, W = cfg.model.height, cfg.model.width
@@ -3905,7 +3841,7 @@ def phase_bench(variant: str, dev, smi: str, scan_graph_ms: float, train_eager_m
     per_step = _train_launches(cfg)
     for mode, steps_run in (("train_step", 1 + BENCH_WARMUP + BENCH_STEPS),
                             ("train_step_scan", 1 + (BENCH_WARMUP + BENCH_STEPS) * SCAN_K)):
-        wk.reset_launches()
+        _build.reset_launches()
         res = _bench(common + ["--mode", mode, "--steps", str(BENCH_STEPS)])
         launches = _check_counts(per_step, steps_run)
         out[mode] = {"ms_per_step": res["median_s"] * 1e3, "frames_per_s": res["frames_per_sec"],
@@ -3926,7 +3862,7 @@ def phase_bench(variant: str, dev, smi: str, scan_graph_ms: float, train_eager_m
         path = os.path.join(tmp.name, "trace.json")
         with open(path) as f:
             text = f.read()
-        names = [WARP_KERNEL_NAMES[k] for k in per_step]
+        names = [name for k in per_step for name in wk.KERNELS[k]]
         found = {n: text.count(n) for n in names}
         if not all(found.values()):
             raise AssertionError(f"trace {path}: {found}")
@@ -4003,7 +3939,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from depthvo_tpu_torch.configs.base import full_feat
-    from depthvo_tpu_torch.ops import batch_norm as bn
 
     dev = torch.device("cuda")
     name, smi = phase_device()
@@ -4027,75 +3962,77 @@ def main() -> int:
     phase_bench("full_feat", dev, smi, scan["bf16_premade"]["graph"]["ms_per_step"], premade_ms)
     phase_serve(dev)
 
-    summary = []
     pallas = "depthvo_tpu/ops/warp_pallas.py"
-    for kernel, replaces in (
-        ("stereo_fwd", f"{pallas}:102"),
-        ("stereo_bwd_u", f"{pallas}:126"),
-        ("stereo_bwd_src", f"{pallas}:148"),
-        ("gen_fwd", f"{pallas}:523"),
-        ("gen_fwd_aux", f"{pallas}:523"),
-        ("gen_bwd_uv", f"{pallas}:651"),
-    ):
-        mine = [r for r in rows if r["kernel"] == kernel]
-        grouped = [r for r in mine if r.get("pyramid")]
-        # Per step or batch of the main path: the grouped launches where
-        # the path makes them (beside its segments' one-segment launches
-        # timed together), else one launch at each shape, summed.
-        timed = grouped or mine
-        summary.append({
-            "name": kernel, "route": "cuda",
-            "source": "depthvo_tpu_torch/ops/csrc/warp.cu", "replaces": replaces,
-            # Launches per step of the main path, `cli train`. On its
-            # custom VJPs, stereo_bwd_src runs only for a stereo source
-            # that needs a gradient and gen_fwd_aux not at all (the
-            # backward recomputes the factors in gen_bwd_uv); the main
-            # path launches neither.
-            "path": "cli train", "launches": train_launches[kernel],
-            "max_abs_err": max(max(r["max_abs_err"], r.get("ragged_max_abs_err", 0.0))
-                               for r in mine),
-            "ms": sum(r["ms"] for r in timed),
-            "plain_ms": sum(r["plain_ms"] for r in timed),
-            "bound_ms": sum(r["bound_ms"] for r in timed),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed) else "operations",
-            "library_ms": sum(r["library_ms"] for r in timed),
-        } | ({"per_scale_ms": grouped[0]["per_scale_ms"]} if grouped else {}))
-    # The global BatchNorm under a mesh (not a TPU kernel): the bf16 step's
-    # times over its 53 layers, float32's beside them.
-    for kernel in bn.KERNELS:
-        by = {r["dtype"]: r for r in rows if r["kernel"] == kernel}
-        summary.append({
-            "name": kernel, "route": "cuda", "source": "depthvo_tpu_torch/ops/csrc/batch_norm.cu",
-            "replaces": "depthvo_tpu/models/layers.py:156",
-            "replaces_what": "flax nn.BatchNorm under a jit sharded over a mesh; not a TPU kernel",
-            "path": "cli train --num-devices N",
-            "launches": dp["cli_rank"]["bn_launches"][kernel],
-            "launches_per_step": dp["cli_rank"]["bn_launches"][kernel] // dp["cli_rank"]["steps"],
-            "max_abs_err": max(r["max_abs_err"] for r in by.values()),
-            "ms": by["bfloat16"]["ms"], "plain_ms": by["bfloat16"]["plain_ms"],
-            "bound_ms": by["bfloat16"]["bound_ms"], "bound_by": by["bfloat16"]["bound_by"],
-            "library_ms": by["bfloat16"]["library_ms"], "dtype": "bfloat16",
-            "float32_ms": by["float32"]["ms"]})
-    for kernel, way in (("gen_fwd_border", "fwd"), ("gen_bwd_uv_border", "bwd")):
-        summary.append({
-            "name": kernel, "route": "cuda", "source": "depthvo_tpu_torch/ops/csrc/warp.cu",
-            "replaces": "none: Monodepth2's F.grid_sample(padding_mode='border', "
-                        "align_corners=True)" + ("" if way == "fwd" else " backward"),
-            "path": "cli train --variant monodepth2_ms",
-            "launches_per_step": md2["launches"][kernel] // 16,
-            "ms": border[f"{way}_ms"], "bound_ms": border[f"{way}_bound_ms"],
-            "bound_by": border["bound_by"], "library_ms": border[f"{way}_library_ms"],
-            "k4_k5_ms": border[f"{way}_k4_ms" if way == "fwd" else "bwd_k5_ms"]})
-    for kernel, way in (("reproj_fwd", "fwd"), ("reproj_bwd", "bwd")):
-        summary.append({
-            "name": kernel, "route": "cuda", "source": "depthvo_tpu_torch/ops/csrc/reproj.cu",
-            "replaces": "none: Monodepth2's compute_reprojection_loss (SSIM and L1)"
-                        + ("" if way == "fwd" else ", autograd's backward to pred"),
-            "path": "cli train --variant monodepth2_ms",
-            "launches_per_step": md2["launches"][kernel] // 16,
-            "ms": reproj[f"{way}_us"] / 1e3, "bound_ms": reproj[f"{way}_bound_us"] / 1e3,
-            "bound_by": reproj["bound_by"],
-            "plain_ms": reproj["fwd_plain_us" if way == "fwd" else "fwd_bwd_plain_us"] / 1e3})
+    replaces = {"stereo_fwd": f"{pallas}:102", "stereo_bwd_u": f"{pallas}:126",
+                "stereo_bwd_src": f"{pallas}:148", "gen_fwd": f"{pallas}:523",
+                "gen_fwd_aux": f"{pallas}:523", "gen_bwd_uv": f"{pallas}:651"}
+    sources = {**dict.fromkeys(wk.KERNELS, "warp.cu"), **dict.fromkeys(rp.KERNELS, "reproj.cu"),
+               **dict.fromkeys(bn.KERNELS, "batch_norm.cu")}
+    summary = []
+    for kernel in ops.KERNELS:
+        row = {"name": kernel, "route": "cuda",
+               "source": f"depthvo_tpu_torch/ops/csrc/{sources[kernel]}"}
+        summary.append(row)
+        if kernel in replaces:
+            mine = [r for r in rows if r["kernel"] == kernel]
+            grouped = [r for r in mine if r.get("pyramid")]
+            # Per step or batch of the main path: the grouped launches where
+            # the path makes them (beside its segments' one-segment launches
+            # timed together), else one launch at each shape, summed.
+            timed = grouped or mine
+            row.update({
+                "replaces": replaces[kernel],
+                # Launches per step of the main path, `cli train`. On its
+                # custom VJPs, stereo_bwd_src runs only for a stereo source
+                # that needs a gradient and gen_fwd_aux not at all (the
+                # backward recomputes the factors in gen_bwd_uv); the main
+                # path launches neither.
+                "path": "cli train", "launches": train_launches[kernel],
+                "max_abs_err": max(max(r["max_abs_err"], r.get("ragged_max_abs_err", 0.0))
+                                   for r in mine),
+                "ms": sum(r["ms"] for r in timed),
+                "plain_ms": sum(r["plain_ms"] for r in timed),
+                "bound_ms": sum(r["bound_ms"] for r in timed),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed)
+                else "operations",
+                "library_ms": sum(r["library_ms"] for r in timed),
+            } | ({"per_scale_ms": grouped[0]["per_scale_ms"]} if grouped else {}))
+        elif kernel in bn.KERNELS:
+            # The global BatchNorm under a mesh (not a TPU kernel): the bf16
+            # step's times over its 53 layers, float32's beside them.
+            by = {r["dtype"]: r for r in rows if r["kernel"] == kernel}
+            launches = dp["cli_rank"]["bn_launches"][kernel]
+            row.update({
+                "replaces": "depthvo_tpu/models/layers.py:156",
+                "replaces_what": "flax nn.BatchNorm under a jit sharded over a mesh; not a "
+                                 "TPU kernel",
+                "path": "cli train --num-devices N", "launches": launches,
+                "launches_per_step": launches // dp["cli_rank"]["steps"],
+                "max_abs_err": max(r["max_abs_err"] for r in by.values()),
+                "ms": by["bfloat16"]["ms"], "plain_ms": by["bfloat16"]["plain_ms"],
+                "bound_ms": by["bfloat16"]["bound_ms"], "bound_by": by["bfloat16"]["bound_by"],
+                "library_ms": by["bfloat16"]["library_ms"], "dtype": "bfloat16",
+                "float32_ms": by["float32"]["ms"]})
+        elif kernel in rp.KERNELS:
+            way = kernel.removeprefix("reproj_")
+            row.update({
+                "replaces": "none: Monodepth2's compute_reprojection_loss (SSIM and L1)"
+                            + ("" if way == "fwd" else ", autograd's backward to pred"),
+                "path": "cli train --variant monodepth2_ms",
+                "launches_per_step": md2["launches"][kernel] // 16,
+                "ms": reproj[f"{way}_us"] / 1e3, "bound_ms": reproj[f"{way}_bound_us"] / 1e3,
+                "bound_by": reproj["bound_by"],
+                "plain_ms": reproj["fwd_plain_us" if way == "fwd" else "fwd_bwd_plain_us"] / 1e3})
+        else:  # Monodepth2's border warp
+            way = "fwd" if kernel == "gen_fwd_border" else "bwd"
+            row.update({
+                "replaces": "none: Monodepth2's F.grid_sample(padding_mode='border', "
+                            "align_corners=True)" + ("" if way == "fwd" else " backward"),
+                "path": "cli train --variant monodepth2_ms",
+                "launches_per_step": md2["launches"][kernel] // 16,
+                "ms": border[f"{way}_ms"], "bound_ms": border[f"{way}_bound_ms"],
+                "bound_by": border["bound_by"], "library_ms": border[f"{way}_library_ms"],
+                "k4_k5_ms": border[f"{way}_k4_ms" if way == "fwd" else "bwd_k5_ms"]})
     print(smi, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -101,7 +101,7 @@ import torch
 
 from depthvo_tpu_torch import configs
 from depthvo_tpu_torch.api import DepthVO
-from depthvo_tpu_torch.configs import base as config_base
+from depthvo_tpu_torch.configs import VARIANTS, base as config_base
 from depthvo_tpu_torch.data import kitti
 from depthvo_tpu_torch.data.eigen import EIGEN_TEST_SCENES
 from depthvo_tpu_torch.data.synthetic import SyntheticScenes
@@ -112,7 +112,6 @@ from depthvo_tpu_torch.train.state import create_state
 from depthvo_tpu_torch.utils.device import resolve_device
 from depthvo_tpu_torch.utils.logging import MetricLogger
 
-VARIANTS = ["stereo", "temporal_stereo", "full_feat", "tiny_test", "monodepth2_ms"]
 # A variant's batch when no --batch-size is given (4 for the others).
 _VARIANT_BATCH = {"monodepth2_ms": 12}
 HELD_OUT_SEED = 1_000_003  # synthetic validation scenes: disjoint from training's

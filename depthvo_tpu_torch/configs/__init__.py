@@ -10,3 +10,6 @@ from depthvo_tpu_torch.configs.base import (  # noqa: F401
     tiny_test,
     monodepth2_ms,
 )
+
+# The variants ``cli train`` and ``utils.profiling`` take by name.
+VARIANTS = ["stereo", "temporal_stereo", "full_feat", "tiny_test", "monodepth2_ms"]

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each ``ops/csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, which ``ctypes`` loads (no
@@ -7,10 +7,20 @@ into ``ops/build/`` (listed in ``.gitignore``), and each library is named
 by a hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is not. Sources that need building are compiled in
 parallel, one ``nvcc`` each. Nothing here runs at import time.
+
+Every wrapper of a kernel module (``warp_kernels``, ``batch_norm``,
+``reproj``) calls its library's C entry through :func:`launch`, which
+passes the current stream and counts the launch in the one ledger of the
+ops package, :data:`LAUNCHES`, under the wrapper's launch key (the keys of
+the modules' ``KERNELS`` tables). Under CUDA-graph capture it counts in
+:data:`CAPTURED` instead: whoever replays the graph adds those to
+:data:`LAUNCHES` at each replay (``train.loop``), so that a replayed step
+counts as an eager one.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -20,6 +30,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
@@ -28,6 +40,32 @@ NVCC_FLAGS = (
 )
 
 _build_lock = threading.Lock()
+
+# Launches per (launch key, shape key); only the CUDA wrappers count, where
+# they launch.
+LAUNCHES: collections.Counter = collections.Counter()
+# What the wrappers were called for while their stream was capturing a
+# CUDA graph: the capture runs no kernel.
+CAPTURED: collections.Counter = collections.Counter()
+
+
+def launch_count(name: str) -> int:
+    """Launches of kernel ``name`` since the last :func:`reset_launches`."""
+    return sum(n for (k, _), n in LAUNCHES.items() if k == name)
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def launch(name: str, fn, *args, device: torch.device, key: tuple) -> None:
+    """``fn(*args, stream)`` with ``device``'s current stream, one launch
+    of kernel ``name``: raises if ``fn`` returns a CUDA error, else counts
+    ``(name, key)`` (in :data:`CAPTURED` under capture)."""
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[(name, key)] += 1
 
 
 def find_nvcc() -> str:

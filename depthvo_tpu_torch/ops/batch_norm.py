@@ -30,9 +30,10 @@ step, as the composed autograd formula it replaces made.
 
 Dispatch is on the tensor's device: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, or the call raises. The CUDA
-wrappers count their launches in ``warp_kernels.LAUNCHES`` (the ops
-package's one ledger, so a CUDA graph's replays count them as they count
-the warps'); under capture they count in ``warp_kernels.CAPTURED``.
+wrappers launch through ``_build.launch``, which counts each launch under
+its key of :data:`KERNELS` in the ops package's one ledger
+(``_build.LAUNCHES``, so a CUDA graph's replays count them as they count
+the warps').
 """
 
 from __future__ import annotations
@@ -44,11 +45,16 @@ import torch
 import torch.distributed as dist
 
 from depthvo_tpu_torch.ops import _build
-from depthvo_tpu_torch.ops.warp_kernels import (  # noqa: F401 (the ledger, re-exported)
-    LAUNCHES, _count, _launch, _stream, launch_count,
-)
 
-KERNELS = ("bn_stats", "bn_normalize", "bn_bwd_reduce", "bn_bwd_elemt")
+# Launch key -> the device kernels one launch runs, by their names in a
+# profiler trace: bn_stats and bn_bwd_reduce write partial sums and then
+# sum them in a fixed order.
+KERNELS = {
+    "bn_stats": ("bn_stats_partial_kernel", "bn_sum_partials_kernel"),
+    "bn_normalize": ("bn_normalize_kernel",),
+    "bn_bwd_reduce": ("bn_bwd_partial_kernel", "bn_sum_partials_kernel"),
+    "bn_bwd_elemt": ("bn_bwd_elemt_kernel",),
+}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Blocks a launch aims at: a few per SM of the H100's 132, so that a
 # layer of C = 32 channels fills the card as one of C = 1024 does.
@@ -118,11 +124,6 @@ def _on_card(x: torch.Tensor, **others: torch.Tensor) -> None:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
 
 
-def _launch_counted(name: str, fn, x: torch.Tensor, *args) -> None:
-    _launch(name, fn, *args, _stream(x.device))
-    _count((name, tuple(x.shape)))
-
-
 # --------------------------------------------------------------------------
 # bn_stats
 # --------------------------------------------------------------------------
@@ -145,8 +146,9 @@ def bn_stats_cuda(x: torch.Tensor) -> torch.Tensor:
     chunks = chunks_of(C, HW, x.element_size())
     partial = torch.empty(C * chunks * 2, dtype=torch.float32, device=x.device)
     stats = torch.empty(2 * C + 1, dtype=torch.float32, device=x.device)
-    _launch_counted("bn_stats", _kernels().depthvo_bn_stats, x, x.data_ptr(), DTYPES[x.dtype],
-                    N, C, HW, chunks, partial.data_ptr(), stats.data_ptr())
+    _build.launch("bn_stats", _kernels().depthvo_bn_stats, x.data_ptr(), DTYPES[x.dtype],
+                  N, C, HW, chunks, partial.data_ptr(), stats.data_ptr(), device=x.device,
+                  key=tuple(x.shape))
     return stats
 
 
@@ -199,11 +201,12 @@ def bn_normalize_cuda(x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor
     _on_card(x, stats=stats, **vecs)
     y = torch.empty_like(x)
     save = torch.empty(3 * C + 1, dtype=torch.float32, device=x.device)
-    _launch_counted("bn_normalize", _kernels().depthvo_bn_normalize, x, x.data_ptr(),
-                    DTYPES[x.dtype], N, C, HW, chunks_of(C, HW, x.element_size()),
-                    stats.data_ptr(), weight.data_ptr(), bias.data_ptr(), eps, momentum,
-                    1.0 - momentum, int(update), y.data_ptr(), save.data_ptr(),
-                    running_mean.data_ptr(), running_var.data_ptr())
+    _build.launch("bn_normalize", _kernels().depthvo_bn_normalize, x.data_ptr(),
+                  DTYPES[x.dtype], N, C, HW, chunks_of(C, HW, x.element_size()),
+                  stats.data_ptr(), weight.data_ptr(), bias.data_ptr(), eps, momentum,
+                  1.0 - momentum, int(update), y.data_ptr(), save.data_ptr(),
+                  running_mean.data_ptr(), running_var.data_ptr(), device=x.device,
+                  key=tuple(x.shape))
     return y, save
 
 
@@ -241,9 +244,9 @@ def bn_bwd_reduce_cuda(g: torch.Tensor, x: torch.Tensor, save: torch.Tensor) -> 
     chunks = chunks_of(C, HW, x.element_size())
     partial = torch.empty(C * chunks * 2, dtype=torch.float32, device=x.device)
     sums = torch.empty(4 * C, dtype=torch.float32, device=x.device)
-    _launch_counted("bn_bwd_reduce", _kernels().depthvo_bn_bwd_reduce, x, g.data_ptr(),
-                    x.data_ptr(), DTYPES[x.dtype], N, C, HW, chunks, save.data_ptr(),
-                    partial.data_ptr(), sums.data_ptr())
+    _build.launch("bn_bwd_reduce", _kernels().depthvo_bn_bwd_reduce, g.data_ptr(),
+                  x.data_ptr(), DTYPES[x.dtype], N, C, HW, chunks, save.data_ptr(),
+                  partial.data_ptr(), sums.data_ptr(), device=x.device, key=tuple(x.shape))
     return sums
 
 
@@ -288,9 +291,10 @@ def bn_bwd_elemt_cuda(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
                          f"{sums.dtype} {tuple(sums.shape)}")
     _on_card(x, g=g, weight=weight, save=save, sums=sums)
     dx = torch.empty_like(x)
-    _launch_counted("bn_bwd_elemt", _kernels().depthvo_bn_bwd_elemt, x, g.data_ptr(),
-                    x.data_ptr(), DTYPES[x.dtype], N, C, HW, chunks_of(C, HW, x.element_size()),
-                    weight.data_ptr(), save.data_ptr(), sums.data_ptr(), dx.data_ptr())
+    _build.launch("bn_bwd_elemt", _kernels().depthvo_bn_bwd_elemt, g.data_ptr(),
+                  x.data_ptr(), DTYPES[x.dtype], N, C, HW, chunks_of(C, HW, x.element_size()),
+                  weight.data_ptr(), save.data_ptr(), sums.data_ptr(), dx.data_ptr(),
+                  device=x.device, key=tuple(x.shape))
     return dx
 
 

@@ -33,9 +33,10 @@ backward of each), which reads and writes a full-size image per op.
 
 Dispatch is on the tensors' device: CPU tensors take the plain versions,
 CUDA tensors the kernels, or the call raises; it never falls back. The
-CUDA wrappers launch on the current stream, allocate only their output
-and count each launch in ``warp_kernels.LAUNCHES`` (in ``CAPTURED`` under
-CUDA-graph capture) as ``reproj_fwd`` and ``reproj_bwd``.
+CUDA wrappers allocate only their output and launch through
+``_build.launch``, on the current stream, which counts each launch in the
+ops package's ledger (``_build.LAUNCHES``) as ``reproj_fwd`` or
+``reproj_bwd``.
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ import torch
 import torch.nn.functional as F
 
 from depthvo_tpu_torch.ops import _build
-from depthvo_tpu_torch.ops.warp_kernels import _count, _launch, _stream
 
 SSIM_C1 = 0.01 ** 2
 SSIM_C2 = 0.03 ** 2
@@ -56,6 +56,10 @@ SSIM_C2 = 0.03 ** 2
 FWD_COLS, FWD_ROWS = 30, 8
 BWD_COLS, BWD_ROWS = 28, 10
 WARPS = 4
+# Launch key -> the device kernel one launch runs, by its name in a
+# profiler trace.
+KERNELS = {"reproj_fwd": ("reproj_ssim_l1_fwd_kernel",),
+           "reproj_bwd": ("reproj_ssim_l1_bwd_kernel",)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,9 +214,9 @@ def reproj_fwd_cuda(pred: torch.Tensor, target: torch.Tensor,
     B, H, W = _images(pred, target)
     _on_card(pred, target=target)
     out = torch.empty((B, 1, H, W), dtype=torch.float32, device=pred.device)
-    _launch("reproj_fwd", _kernels().depthvo_reproj_fwd, pred.data_ptr(), target.data_ptr(),
-            out.data_ptr(), B, H, W, ssim_weight, 1.0 - ssim_weight, _stream(pred.device))
-    _count(("reproj_fwd", tuple(pred.shape)))
+    _build.launch("reproj_fwd", _kernels().depthvo_reproj_fwd, pred.data_ptr(),
+                  target.data_ptr(), out.data_ptr(), B, H, W, ssim_weight, 1.0 - ssim_weight,
+                  device=pred.device, key=tuple(pred.shape))
     return out
 
 
@@ -225,10 +229,9 @@ def reproj_bwd_cuda(pred: torch.Tensor, target: torch.Tensor, g: torch.Tensor,
     _check("g", g, (B, 1, H, W))
     _on_card(pred, target=target, g=g)
     d_pred = torch.empty_like(pred)
-    _launch("reproj_bwd", _kernels().depthvo_reproj_bwd, pred.data_ptr(), target.data_ptr(),
-            g.data_ptr(), d_pred.data_ptr(), B, H, W, ssim_weight,
-            1.0 - ssim_weight, _stream(pred.device))
-    _count(("reproj_bwd", tuple(pred.shape)))
+    _build.launch("reproj_bwd", _kernels().depthvo_reproj_bwd, pred.data_ptr(),
+                  target.data_ptr(), g.data_ptr(), d_pred.data_ptr(), B, H, W, ssim_weight,
+                  1.0 - ssim_weight, device=pred.device, key=tuple(pred.shape))
     return d_pred
 
 

@@ -29,11 +29,10 @@ plain PyTorch version of the same function beside it:
 
 Dispatch is on the tensor's device: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, or the call raises. Each
-wrapper counts its launches in :data:`LAUNCHES` (``gen_fwd`` with the
-gradient factors counts as ``gen_fwd_aux``); under CUDA-graph capture it
-counts in :data:`CAPTURED` instead, and each replay of the graph adds
-those to :data:`LAUNCHES`. The kernels launch on the current stream,
-so a graph of the train step captures them.
+wrapper launches through ``_build.launch``, on the current stream (so a
+graph of the train step captures it), and counts in the ops package's
+ledger (``_build.LAUNCHES``) under its key of :data:`KERNELS`
+(``gen_fwd`` with the gradient factors counts as ``gen_fwd_aux``).
 
 Two ``torch.autograd.Function``s sit where the reference puts its custom
 VJPs, so autograd on either device runs the same backward contract:
@@ -63,7 +62,6 @@ the pixels the reference drops on the TPU.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import Callable, NamedTuple, Sequence
@@ -89,28 +87,19 @@ FWD_PIX = 2
 # A segment's pointers in that table, in csrc/warp.cu fill_table's order.
 TABLE_FIELDS = ("src", "u", "v", "g", "out", "s_aux", "d_aux")
 
-# Launches per (kernel name, src shape); only the CUDA wrappers count,
-# where they launch: the warps' here and the global BatchNorm's
-# (ops/batch_norm.py), so that a graph's replays count both.
-LAUNCHES: collections.Counter = collections.Counter()
-# What the wrappers were called for while their stream was capturing a
-# CUDA graph: the capture runs no kernel. Whoever replays the graph adds
-# the capture's counts to LAUNCHES at each replay.
-CAPTURED: collections.Counter = collections.Counter()
-
-
-def launch_count(name: str) -> int:
-    """Launches of kernel ``name`` since the last :func:`reset_launches`."""
-    return sum(n for (k, _), n in LAUNCHES.items() if k == name)
-
-
-def reset_launches() -> None:
-    LAUNCHES.clear()
-
-
-def _count(key: tuple) -> None:
-    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[key] += 1
-
+# Launch key -> the device kernels one launch runs (csrc/warp.cu), by
+# their names in a profiler trace: gen_fwd and gen_fwd_aux launch the two
+# instantiations of one template.
+KERNELS = {
+    "stereo_fwd": ("stereo_fwd_pyramid_kernel",),
+    "stereo_bwd_u": ("stereo_bwd_u_pyramid_kernel",),
+    "stereo_bwd_src": ("stereo_bwd_src_kernel",),
+    "gen_fwd": ("gen_fwd_pyramid_kernel<false>",),
+    "gen_fwd_aux": ("gen_fwd_pyramid_kernel<true>",),
+    "gen_bwd_uv": ("gen_bwd_uv_kernel",),
+    "gen_fwd_border": ("gen_fwd_border_kernel",),
+    "gen_bwd_uv_border": ("gen_bwd_uv_border_kernel",),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,16 +149,6 @@ def _check_src(src: torch.Tensor, name: str = "src"):
     if src.ndim != 4:
         raise ValueError(f"{name} must be (B, C, H, W), got {tuple(src.shape)}")
     return src.shape
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
-    if err:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
 def n_shifts(dmax: int | None, W: int) -> int:
@@ -245,15 +224,15 @@ def _launch_table(name: str, fn, plans, *flags, **fields) -> None:
     """One grouped launch: packs the segments' tensors (``fields``, one
     list per name of :data:`TABLE_FIELDS` the kernel reads or writes) and
     plans into the host arrays ``csrc/warp.cu``'s ``fill_table`` reads,
-    and counts it in :data:`LAUNCHES` under the sources' shapes."""
+    and counts it under the sources' shapes."""
     srcs = fields["src"]
     none = [None] * len(plans)
     ptrs = [None if t is None else t.data_ptr()
             for row in zip(*(fields.get(f, none) for f in TABLE_FIELDS)) for t in row]
     ints = [x for pl in plans for x in (pl.B, pl.C, pl.H, pl.W, pl.block_end)]
-    _launch(name, fn, len(plans), (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * len(ints))(*ints), *flags, _stream(srcs[0].device))
-    _count((name, tuple(tuple(s.shape) for s in srcs)))
+    _build.launch(name, fn, len(plans), (ctypes.c_void_p * len(ptrs))(*ptrs),
+                  (ctypes.c_int * len(ints))(*ints), *flags, device=srcs[0].device,
+                  key=tuple(tuple(s.shape) for s in srcs))
 
 
 # --------------------------------------------------------------------------
@@ -395,10 +374,9 @@ def stereo_bwd_src_cuda(g: torch.Tensor, u: torch.Tensor,
     if W > MAX_BWD_SRC_WIDTH:
         raise ValueError(f"stereo_bwd_src takes W <= {MAX_BWD_SRC_WIDTH}, got {W}")
     d_src = torch.empty_like(g)
-    _launch("stereo_bwd_src", _kernels().depthvo_stereo_bwd_src,
-            g.data_ptr(), u.data_ptr(), d_src.data_ptr(), B, C, H, W,
-            n_shifts(dmax, W), _stream(g.device))
-    _count(("stereo_bwd_src", (B, C, H, W)))
+    _build.launch("stereo_bwd_src", _kernels().depthvo_stereo_bwd_src,
+                  g.data_ptr(), u.data_ptr(), d_src.data_ptr(), B, C, H, W,
+                  n_shifts(dmax, W), device=g.device, key=(B, C, H, W))
     return d_src
 
 
@@ -599,10 +577,10 @@ def gen_bwd_uv_cuda(src: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     _check_cuda("v", v, (B, H, W), src.device)
     d_u = torch.empty_like(u)
     d_v = torch.empty_like(v)
-    _launch("gen_bwd_uv", _kernels().depthvo_gen_bwd_uv,
-            src.data_ptr(), g.data_ptr(), u.data_ptr(), v.data_ptr(),
-            d_u.data_ptr(), d_v.data_ptr(), B, C, H, W, _stream(src.device))
-    _count(("gen_bwd_uv", (B, C, H, W)))
+    _build.launch("gen_bwd_uv", _kernels().depthvo_gen_bwd_uv,
+                  src.data_ptr(), g.data_ptr(), u.data_ptr(), v.data_ptr(),
+                  d_u.data_ptr(), d_v.data_ptr(), B, C, H, W, device=src.device,
+                  key=(B, C, H, W))
     return d_u, d_v
 
 
@@ -682,9 +660,9 @@ def border_sample_cuda(src: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) ->
     """Launch ``gen_fwd_border`` (csrc/warp.cu); raises, never falls back."""
     B, C, H, W = _border_checks(src, ("gx", gx, "map"), ("gy", gy, "map"))
     out = torch.empty_like(src)
-    _launch("gen_fwd_border", _kernels().depthvo_gen_fwd_border, src.data_ptr(),
-            gx.data_ptr(), gy.data_ptr(), out.data_ptr(), B, C, H, W, _stream(src.device))
-    _count(("gen_fwd_border", (B, C, H, W)))
+    _build.launch("gen_fwd_border", _kernels().depthvo_gen_fwd_border, src.data_ptr(),
+                  gx.data_ptr(), gy.data_ptr(), out.data_ptr(), B, C, H, W,
+                  device=src.device, key=(B, C, H, W))
     return out
 
 
@@ -694,10 +672,10 @@ def border_bwd_uv_cuda(src: torch.Tensor, g: torch.Tensor, gx: torch.Tensor,
     B, C, H, W = _border_checks(src, ("g", g, "src"), ("gx", gx, "map"), ("gy", gy, "map"))
     d_gx = torch.empty_like(gx)
     d_gy = torch.empty_like(gy)
-    _launch("gen_bwd_uv_border", _kernels().depthvo_gen_bwd_uv_border, src.data_ptr(),
-            g.data_ptr(), gx.data_ptr(), gy.data_ptr(), d_gx.data_ptr(), d_gy.data_ptr(),
-            B, C, H, W, _stream(src.device))
-    _count(("gen_bwd_uv_border", (B, C, H, W)))
+    _build.launch("gen_bwd_uv_border", _kernels().depthvo_gen_bwd_uv_border,
+                  src.data_ptr(), g.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+                  d_gx.data_ptr(), d_gy.data_ptr(), B, C, H, W, device=src.device,
+                  key=(B, C, H, W))
     return d_gx, d_gy
 
 

@@ -27,12 +27,14 @@ batch as the reference's do, by its shard-or-replicate predicate: each
 rank keeps its rows (``distributed.local_slice``) on its device. The
 reference's ``batch_sharding`` and ``replicated`` return JAX
 ``NamedSharding``s; they have no torch counterpart here.
+:func:`global_counts` and :func:`global_metrics` sum a train step's loss
+normalizers and metrics over the mesh's ranks, one all-reduce each.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
@@ -200,6 +202,21 @@ def replicate(state, mesh: Mesh):
     for t in tensors:
         dist.broadcast(t, src=mesh.ranks[0], group=mesh.group)
     return state
+
+
+def global_counts(counts: Sequence[torch.Tensor], mesh: Mesh) -> list:
+    """Per tensor of ``counts``, its sum over the mesh's ranks, all in one
+    all-reduce (the loss normalizers of the global batch)."""
+    flat = torch.cat(list(counts))
+    dist.all_reduce(flat, group=mesh.group)
+    return list(flat.split([c.numel() for c in counts]))
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The ranks' shares of each metric summed (one all-reduce), detached."""
+    flat = torch.stack([v.detach().float() for v in metrics.values()])
+    dist.all_reduce(flat, group=mesh.group)
+    return dict(zip(metrics, flat.unbind()))
 
 
 def num_processes(mesh: Mesh) -> int:

@@ -57,7 +57,7 @@ from depthvo_tpu_torch.losses.photometric import (
 from depthvo_tpu_torch.losses.smoothness import smoothness_loss
 from depthvo_tpu_torch.models import layers
 from depthvo_tpu_torch.models.layers import resize_bilinear_chw
-from depthvo_tpu_torch.ops import warp_kernels
+from depthvo_tpu_torch.ops import _build
 from depthvo_tpu_torch.parallel import distributed as pdist, mesh as pmesh
 from depthvo_tpu_torch.train import monodepth2 as md2_train, optim
 from depthvo_tpu_torch.train.state import (
@@ -200,7 +200,8 @@ def compute_losses(config: ExperimentConfig, models: Models,
     if mesh is not None:
         valids = (stereo.valids if config.use_stereo else []) + (
             general.valids if gen_srcs else [])
-        counts = _global_counts(valids, config.ssim_weight, mesh)
+        counts = pmesh.global_counts([valid_counts(v, config.ssim_weight) for v in valids],
+                                     mesh)
         if config.use_stereo:
             stereo_n, counts = counts[:n_scales], counts[n_scales:]
         for i, c in zip(temporal_scales, counts):
@@ -242,7 +243,8 @@ def compute_losses(config: ExperimentConfig, models: Models,
             )
             warped = warped_hwc.permute(0, 3, 1, 2)
             if mesh is not None:
-                fused_n = _global_counts([valid], config.ssim_weight, mesh)[0]
+                fused_n = pmesh.global_counts([valid_counts(valid, config.ssim_weight)],
+                                              mesh)[0]
         else:
             warped, valid = general[-1]()
         temporal_total = temporal_total + photometric_loss_chw(
@@ -267,24 +269,8 @@ def compute_losses(config: ExperimentConfig, models: Models,
     metrics["disp/mean"] = torch.mean(disps[-1])
     if mesh is not None:
         metrics["disp/mean"] = metrics["disp/mean"] / mesh.size
-        metrics = _global_metrics(metrics, mesh)
+        metrics = pmesh.global_metrics(metrics, mesh)
     return total, metrics
-
-
-def _global_counts(valids, ssim_weight: float, mesh) -> list:
-    """Per mask, its :func:`losses.photometric.valid_counts` summed over
-    the mesh's ranks, all in one all-reduce."""
-    parts = [valid_counts(v, ssim_weight) for v in valids]
-    flat = torch.cat(parts)
-    torch.distributed.all_reduce(flat, group=mesh.group)
-    return list(flat.split([p.numel() for p in parts]))
-
-
-def _global_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """The ranks' shares of each metric summed (one all-reduce), detached."""
-    flat = torch.stack([v.detach().float() for v in metrics.values()])
-    torch.distributed.all_reduce(flat, group=mesh.group)
-    return dict(zip(metrics, flat.unbind()))
 
 
 def fused_payload(image_chw: torch.Tensor, feat_chw: torch.Tensor) -> torch.Tensor:
@@ -551,7 +537,7 @@ class _GraphedSteps:
         for p in params:
             p.grad = None
         graph = torch.cuda.CUDAGraph()
-        warp_kernels.CAPTURED.clear()
+        _build.CAPTURED.clear()
         # On the warm-up's stream; thread_local: the prefetch thread may
         # upload while this captures.
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
@@ -564,7 +550,7 @@ class _GraphedSteps:
             if g is not None:
                 p.grad.copy_(g)
         self.graphs[optim.hyper_key(hyper)] = _Captured(
-            graph, scalars, static, collections.Counter(warp_kernels.CAPTURED))
+            graph, scalars, static, collections.Counter(_build.CAPTURED))
         return metrics
 
     def __call__(self, state: TrainState, stacked: Dict[str, torch.Tensor]):
@@ -588,7 +574,7 @@ class _GraphedSteps:
                 else:
                     captured.scalars.copy_(table[k, :captured.scalars.numel()])
                     captured.graph.replay()
-                    warp_kernels.LAUNCHES.update(captured.launches)
+                    _build.LAUNCHES.update(captured.launches)
                     metrics = captured.metrics
                 state.opt_state = opt_states[k]
                 state.step += 1

@@ -39,6 +39,7 @@ from depthvo_tpu_torch import ops
 from depthvo_tpu_torch.geometry import monodepth2 as geo
 from depthvo_tpu_torch.losses import monodepth2 as md2_loss
 from depthvo_tpu_torch.models.layers import resize_bilinear_chw
+from depthvo_tpu_torch.parallel.mesh import global_metrics
 from depthvo_tpu_torch.utils import spans
 
 STEREO_T = 0.1  # Monodepth2's stereo baseline, its units (depth x 5.4 = metres)
@@ -101,8 +102,6 @@ def compute_losses(config, models, batch: Dict[str, torch.Tensor], train: bool =
 
 
 def _losses(config, models, batch, train, mesh, noise):
-    from depthvo_tpu_torch.train import loop  # its metrics' reduction over a mesh
-
     depth_net, pose_net, _ = models.train(train)
     img = {k: to_md2(batch[k]) for k in frame_keys(config)}
     target = img["image_t"]
@@ -165,5 +164,5 @@ def _losses(config, models, batch, train, mesh, noise):
         metrics[f"md2/source_share/{name}"] = won[k + 1]
     metrics["disp/mean"] = torch.mean(disps[0]) * share
     if mesh is not None:
-        metrics = loop._global_metrics(metrics, mesh)
+        metrics = global_metrics(metrics, mesh)
     return total, metrics

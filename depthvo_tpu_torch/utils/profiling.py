@@ -16,9 +16,11 @@ the reference's ``train_step_scan`` mode) or ``make_eval_step``
 (traced, so with the profiler's overhead), device kernel time per step
 and the busy share of the wall time, kernel launches per step (all
 kernels, and the warp kernels' own counters), the device time by
-category (the warp kernels, BatchNorm, convolutions, matrix products,
-copies, the rest), each warp kernel's device time, and the kernels that
-take the most device time, all per step; then, for one more step with the
+category (the warp kernels, the reprojection error's, BatchNorm,
+convolutions, matrix products, copies, the rest), each warp kernel's
+device time, and the kernels that take the most device time, all per
+step. Every port kernel is named by its table (``ops.KERNELS``), so none
+falls under "other". Then, for one more step with the
 allocator's history on, its peak of allocated bytes and the bytes live
 at that peak by the line of this package that allocated them (with
 K > 1 instead: the peak allocated over the first call, which captures
@@ -49,22 +51,21 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from depthvo_tpu_torch import configs
+from depthvo_tpu_torch import configs, ops
 from depthvo_tpu_torch.data.synthetic import SyntheticScenes
-from depthvo_tpu_torch.ops import warp_kernels
+from depthvo_tpu_torch.ops import _build, reproj, warp_kernels
 from depthvo_tpu_torch.train import loop
 from depthvo_tpu_torch.train.state import build_models, create_state, init_params, load_params
 from depthvo_tpu_torch.utils import spans
 from depthvo_tpu_torch.utils.device import resolve_device
 
-WARP_KERNELS = ("stereo_fwd_pyramid_kernel", "stereo_bwd_u_pyramid_kernel",
-                "stereo_bwd_src_kernel", "gen_fwd_pyramid_kernel", "gen_bwd_uv_kernel")
 _CATEGORIES = (
-    ("warp_kernels", WARP_KERNELS),
+    ("warp_kernels", tuple(ops.symbols(warp_kernels.KERNELS))),
+    ("reprojection", tuple(ops.symbols(reproj.KERNELS))),
     ("memcpy", ("memcpy", "memset")),
     # Before the convolution keys, which would claim cuDNN's BatchNorm
     # kernels by their ``cudnn`` prefix. ``bn_`` takes cuDNN's (bn_fw_*,
-    # bn_bw_*) and the port's own (ops/csrc/batch_norm.cu's bn_*_kernel).
+    # bn_bw_*) and the port's own (``ops.batch_norm.KERNELS``).
     ("batch_norm", ("bn_", "batch_norm", "batchnorm")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop", "dgrad",
                      "wgrad")),
@@ -93,6 +94,40 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def device_kernels(prof) -> tuple:
+    """The CUDA kernels of a ``torch.profiler`` trace: {kernel name:
+    [device us, launches]}, and the us in which any of them ran (the
+    union of their intervals)."""
+    by_name: Dict[str, list] = {}
+    intervals = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot = by_name.setdefault(e.name, [0.0, 0])
+            tot[0] += e.time_range.elapsed_us()
+            tot[1] += 1
+            intervals.append((e.time_range.start, e.time_range.end))
+    return by_name, _busy_us(intervals)
+
+
+def matching(by_name: Dict[str, list], names) -> list:
+    """[device us, launches] of the kernels of :func:`device_kernels` whose
+    name contains one of ``names`` (a kernel table's entry)."""
+    hits = [v for k, v in by_name.items() if any(n in k for n in names)]
+    return [sum(us for us, _ in hits), sum(c for _, c in hits)]
+
+
+def heaviest_kernels(by_name: Dict[str, list], n: int, width: int) -> list:
+    """The ``n`` kernels of :func:`device_kernels` that take most device
+    time, by the first ``width`` characters of their names: [name, us,
+    launches], largest first."""
+    tops: Dict[str, list] = {}
+    for name, (us, c) in by_name.items():
+        tot = tops.setdefault(name[:width], [0.0, 0])
+        tot[0] += us
+        tot[1] += c
+    return sorted(([k, us, c] for k, (us, c) in tops.items()), key=lambda r: -r[1])[:n]
+
+
 def _trace(run_step, data, top_kernels: int, steps_per_run: int = 1) -> Dict:
     """Warm up on two batches, then trace one ``run_step(batch)`` per batch
     of ``data`` (``steps_per_run`` steps each) and sum the device kernels,
@@ -102,7 +137,7 @@ def _trace(run_step, data, top_kernels: int, steps_per_run: int = 1) -> Dict:
     for batch in data[:2]:
         run_step(batch)
     torch.cuda.synchronize()
-    warp_kernels.reset_launches()
+    _build.reset_launches()
     n = len(data) * steps_per_run
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -110,41 +145,26 @@ def _trace(run_step, data, top_kernels: int, steps_per_run: int = 1) -> Dict:
             run_step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    launches = {k: warp_kernels.launch_count(k) / n for k in
-                ("stereo_fwd", "stereo_bwd_u", "stereo_bwd_src", "gen_fwd", "gen_fwd_aux",
-                 "gen_bwd_uv")}
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_cat: Dict[str, float] = {}
-    by_name: Dict[str, list] = {}
-    by_warp = {k: 0.0 for k in WARP_KERNELS}
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        cat = category(e.name)
-        by_cat[cat] = by_cat.get(cat, 0.0) + us
-        tot = by_name.setdefault(e.name[:100], [0.0, 0])
-        tot[0] += us
-        tot[1] += 1
-        for k in WARP_KERNELS:
-            if k in e.name:
-                by_warp[k] += us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_kernels]
-    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name, busy = device_kernels(prof)
+    by_cat: Dict[str, float] = collections.Counter()
+    for name, (us, _) in by_name.items():
+        by_cat[category(name)] += us
     return {
         "device": torch.cuda.get_device_name(0),
         "wall_ms_per_step_traced": wall_us / n / 1e3,
         "device_busy_ms_per_step": busy / n / 1e3,
         "device_busy_share": busy / wall_us,
-        "kernels_per_step": len(kernels) / n,
-        "warp_launches_per_step": launches,
+        "kernels_per_step": sum(c for _, c in by_name.values()) / n,
+        "warp_launches_per_step": {k: _build.launch_count(k) / n for k in warp_kernels.KERNELS},
         "device_ms_per_step_by_category": {
             k: v / n / 1e3 for k, v in sorted(by_cat.items())
         },
-        "warp_kernel_ms_per_step": {k: v / n / 1e3 for k, v in by_warp.items()},
+        "warp_kernel_ms_per_step": {k: matching(by_name, names)[0] / n / 1e3
+                                    for k, names in warp_kernels.KERNELS.items()},
         "top_kernels": [
             {"name": name, "category": category(name), "ms_per_step": us / n / 1e3,
              "launches_per_step": c / n}
-            for name, (us, c) in top
+            for name, us, c in heaviest_kernels(by_name, top_kernels, 100)
         ],
     }
 
@@ -689,8 +709,7 @@ def run_benchmark(
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="depthvo_tpu_torch.utils.profiling")
     p.add_argument("--mode", default="train", choices=["train", "eval"])
-    p.add_argument("--variant", default="full_feat",
-                   choices=["stereo", "temporal_stereo", "full_feat", "tiny_test"])
+    p.add_argument("--variant", default="full_feat", choices=configs.VARIANTS)
     p.add_argument("--batches", type=int, default=5)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)

@@ -35,7 +35,7 @@ from flax import linen as nn
 
 from depthvo_tpu_torch.models import layers
 from depthvo_tpu_torch.ops import batch_norm as bn
-from depthvo_tpu_torch.ops import warp_kernels
+from depthvo_tpu_torch.ops import _build
 from depthvo_tpu_torch.parallel import distributed as pdist
 
 torch.set_num_threads(2)
@@ -229,9 +229,9 @@ def test_remat_recompute_moves_no_running_average(group, monkeypatch):
 
 
 def test_cpu_path_launches_no_kernel(group):
-    warp_kernels.reset_launches()
+    _build.reset_launches()
     _port(_inputs(1, False), group)
-    assert all(bn.launch_count(k) == 0 for k in bn.KERNELS)
+    assert all(_build.launch_count(k) == 0 for k in bn.KERNELS)
 
 
 _X = torch.zeros(SHAPE)
@@ -261,7 +261,7 @@ _C = SHAPE[1]
 ], ids=["half", "double", "strided", "channels_last", "3d", "cpu", "stats_size",
         "weight_dtype", "g_dtype", "g_strided", "sums_size", "elemt_cpu"])
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(call, match):
-    warp_kernels.reset_launches()
+    _build.reset_launches()
     with pytest.raises(ValueError, match=match):
         call()
-    assert all(bn.launch_count(k) == 0 for k in bn.KERNELS)
+    assert all(_build.launch_count(k) == 0 for k in bn.KERNELS)

@@ -15,6 +15,9 @@ apart, tests/test_torch_geometry.py), summed in different orders.
 """
 
 import json
+import pathlib
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -200,3 +203,48 @@ def test_profiling_sorts_kernels_and_unions_busy_time():
         for mode in ("eval", "train"):
             with pytest.raises(RuntimeError, match="GPU"):
                 profiling.profile(mode, "tiny_test")
+
+
+def _event(name: str, start: float, end: float, device=torch.autograd.DeviceType.CUDA):
+    """A profiler event as ``profiling.device_kernels`` reads one."""
+    span = types.SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
+    return types.SimpleNamespace(name=name, device_type=device, time_range=span)
+
+
+def test_profiling_reduces_a_trace_per_kernel_name():
+    prof = types.SimpleNamespace(events=lambda: [
+        _event("k<false>(a)", 0, 2), _event("k<true>(a)", 1, 4), _event("k<false>(a)", 6, 7),
+        _event("aten::conv2d", 0, 50, torch.autograd.DeviceType.CPU)])
+    by_name, busy = profiling.device_kernels(prof)
+    assert by_name == {"k<false>(a)": [3, 2], "k<true>(a)": [3, 1]} and busy == 5
+    assert profiling.matching(by_name, ["k<true>"]) == [3, 1]
+    assert profiling.matching(by_name, ["k<", "x"]) == [6, 3]
+    assert profiling.heaviest_kernels({"abc": [1, 1], "abd": [2, 1], "x": [2.5, 4]}, 2, 2) == [
+        ["ab", 3, 2], ["x", 2.5, 4]]
+
+
+_CUDA = "".join(p.read_text() for p in sorted(
+    (pathlib.Path(tops.__file__).parent / "csrc").glob("*.cu")))
+# Every __global__ function of the port's CUDA sources, by name.
+_GLOBALS = sorted(re.findall(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", _CUDA))
+_CATEGORY = {"warp_kernels": "warp_kernels", "batch_norm": "batch_norm", "reproj": "reprojection"}
+
+
+def test_every_global_function_of_the_cuda_sources_is_parsed():
+    assert len(_GLOBALS) == len(set(_GLOBALS)) == _CUDA.count("__global__") > 0, _GLOBALS
+
+
+@pytest.mark.parametrize("symbol", _GLOBALS)
+def test_one_kernel_table_names_each_cuda_kernel(symbol):
+    """Each ``__global__`` function is named by exactly one kernel
+    module's ``KERNELS`` (merged into ``ops.KERNELS``), and the profiler
+    puts it in that module's category, never under "other"; no other
+    kernel's name contains it, so a trace's names match one entry."""
+    owners = [m for m in _CATEGORY
+              if symbol in tops.symbols(getattr(tops, m).KERNELS)]
+    assert len(owners) == 1, owners
+    assert symbol in tops.symbols(tops.KERNELS)
+    traced = f"void (anonymous namespace)::{symbol}(...)"
+    assert profiling.category(traced) == _CATEGORY[owners[0]] != "other"
+    assert [k for k in _GLOBALS if symbol in k] == [symbol]

@@ -14,6 +14,8 @@ absolute wherever ``valid`` holds (float32 bilinear taps of unit-scale
 sources; outside ``valid`` both sides are unspecified by contract).
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +27,7 @@ from depthvo_tpu.ops import warp_pallas
 from chip_smoke import adversarial_stereo_u
 from depthvo_tpu_torch import ops as tops
 from depthvo_tpu_torch.geometry import warp as twarp
-from depthvo_tpu_torch.ops import warp_kernels
+from depthvo_tpu_torch.ops import _build, warp_kernels
 
 torch.set_num_threads(2)
 torch.exp(torch.zeros(1))  # MKL's first call on one thread (test_torch_models.py)
@@ -153,7 +155,7 @@ def test_general_sample_grad_factors_match_pallas(rng, monkeypatch):
         _assert_match(g, valid, r, ref_valid)
 
 
-def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
     """The CUDA wrappers check their inputs before building or launching
     anything, and never fall back to the plain versions: CPU tensors,
     more than MAX_SEGMENTS segments, a segment without its maps, and a
@@ -175,10 +177,13 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         warp_kernels.gen_sample_pyramid_cuda([src] * n, [u] * n, [u] * n)
     with pytest.raises(ValueError, match="its coordinate maps"):
         warp_kernels.gen_sample_pyramid_cuda([src, src], [u, u], [u])
-    with pytest.raises(RuntimeError, match="CUDA error 1"):
-        warp_kernels._launch("stereo_fwd", lambda *args: 1)
-    assert warp_kernels.launch_count("stereo_fwd") == 0
-    assert warp_kernels.launch_count("gen_fwd") == 0
+    stream = types.SimpleNamespace(cuda_stream=0)  # the stream a card would pass
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "current_stream", lambda device: stream)
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            _build.launch("stereo_fwd", lambda *args: 1, device=src.device, key=())
+    assert _build.launch_count("stereo_fwd") == 0
+    assert _build.launch_count("gen_fwd") == 0
 
 
 class _FakeEntry:
@@ -550,7 +555,7 @@ def test_new_cuda_wrappers_refuse_cpu_tensors(wrapper):
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
-    assert sum(warp_kernels.LAUNCHES.values()) == 0
+    assert sum(_build.LAUNCHES.values()) == 0
 
 
 # --------------------------------------------------------------------------
@@ -867,7 +872,7 @@ def test_grouped_stereo_bwd_u_refuses_what_the_kernel_does_not_take():
         warp_kernels.stereo_bwd_u_grouped_cuda([src, src], [src, src], [u[:, :4], u])
     with pytest.raises(ValueError, match="CUDA tensor"):
         warp_kernels.stereo_bwd_u_grouped_cuda([src, src], [src, src], [u, u])
-    assert warp_kernels.launch_count("stereo_bwd_u") == 0
+    assert _build.launch_count("stereo_bwd_u") == 0
 
 
 @pytest.mark.parametrize("mode", ["enable_grad", "no_grad", "inference_mode"])
