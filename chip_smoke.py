@@ -80,10 +80,30 @@ with a nonzero exit code:
              the first two shapes the kernels' device us beside their byte
              bound and the plain composition's forward and forward with
              backward.
+   md2_bn  - Monodepth2's encoder BatchNorm (``ops/md2_batch_norm.py``:
+             md2_bn_stats, md2_bn_normalize, md2_bn_bwd_reduce,
+             md2_bn_bwd_elemt) at the step's five BatchNorm shapes (batch
+             12) and two ragged ones, bf16 and float32, with and without the
+             ReLU, on random data whose channel 0 has a mean 10^3 times its
+             standard deviation: mean and rstd against the plain version
+             within MD2_BN_STAT_TOL (mean in standard deviations, rstd
+             relative), the running averages within MD2_BN_RUNNING_RTOL,
+             [dweight | dbias] within MD2_BN_SUM_TOL of sum |g' xhat| and
+             sum |g'|, y and dx equal to the plain versions bit for bit on
+             the kernels' own statistics and sums; the backward's ReLU mask
+             equal to the forward's (sum g' with integer g, exact, against
+             the forward's y > 0); two replays of a CUDA graph of the four
+             launches equal bit for bit. Then each kernel's device us beside
+             its byte bound and its plain version's, and the library's
+             ``native_batch_norm`` + ReLU forward and ReLU +
+             ``native_batch_norm_backward`` (timed only, never called by the
+             port), per shape and over the step's 60 layers.
    md2     - ``cli train --variant monodepth2_ms`` (8 steps a call): 12
              border warps and 15 reprojection errors forward, 12 of each
-             backward, a step; the graphed step's ms, peak bytes and the
-             kernels that take most of its device time.
+             backward, and 60 launches of each md2_bn kernel, a step; no
+             PyTorch BatchNorm kernel in a traced call; the graphed step's
+             ms, peak bytes and the kernels that take most of its device
+             time.
 4. slice   - the held-out loss pass (``make_eval_step`` + ``run_validation``,
              what ``cli test`` runs) on full_feat at 608x160, batch 4:
              float32 with TF32 off against the same pass on the CPU (plain
@@ -357,7 +377,8 @@ import time
 # The package's kernel tables and launch ledger, its CUDA-graph replay
 # timer (every kernel time below) and its profiler-trace reduction.
 from depthvo_tpu_torch import ops
-from depthvo_tpu_torch.ops import _build, batch_norm as bn, reproj as rp, warp_kernels as wk
+from depthvo_tpu_torch.ops import _build, batch_norm as bn, md2_batch_norm as mbn, reproj as rp
+from depthvo_tpu_torch.ops import warp_kernels as wk
 from depthvo_tpu_torch.utils import profiling
 from depthvo_tpu_torch.utils.profiling import device_ms
 
@@ -932,11 +953,212 @@ def phase_reproj(dev):
     return rows
 
 
+# Monodepth2's encoder BatchNorm against its plain versions on the card: the
+# statistics in another order of float32 sums and merges (the mean in the
+# channel's standard deviations, rstd relative), the running averages
+# relative to their largest value, [dweight | dbias] relative to sum |g' xhat|
+# and sum |g'| per channel (float32 sums in another order); y and dx bit for
+# bit, since on the kernels' own statistics and sums both take the same
+# correctly rounded operations.
+MD2_BN_STAT_TOL = 1e-5
+MD2_BN_RUNNING_RTOL = 1e-5
+MD2_BN_SUM_TOL = 1e-5
+# Cell A's BatchNorm inputs (batch 12 at 1024x320) and how many of the step's
+# 60 layers take each (with the ReLU, without): the depth encoder once and
+# the pose encoder twice, the ReLU after the stem's and every block's bn1.
+MD2_BN_LAYERS = {(12, 64, 160, 512): (3, 0), (12, 64, 80, 256): (6, 6),
+                 (12, 128, 40, 128): (6, 9), (12, 256, 20, 64): (6, 9),
+                 (12, 512, 10, 32): (6, 9)}
+# Ragged shapes: H * W not a multiple of the vector width; more channels
+# than the grid's target, so one block a channel.
+MD2_BN_RAGGED = ((3, 5, 7, 9), (2, 700, 3, 5))
+
+
+def _md2_bn_data(shape, dtype, dev, seed: int) -> dict:
+    """Random x (channel 0 at a mean 10^3 times its standard deviation), g,
+    integer g in [1, 7], weight, bias and running averages on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N, C, H, W = shape
+    x = (torch.randn(shape, device=dev, generator=gen)
+         * (0.5 + 2 * torch.rand(1, C, 1, 1, device=dev, generator=gen))
+         + 2 * torch.randn(1, C, 1, 1, device=dev, generator=gen))
+    x[:, 0] = 1e3 + torch.randn(N, H, W, device=dev, generator=gen)
+    return {"x": x.to(dtype), "g": torch.randn(shape, device=dev, generator=gen).to(dtype),
+            "gi": torch.randint(1, 8, shape, device=dev, generator=gen).to(dtype),
+            "w": 0.5 + torch.rand(C, device=dev, generator=gen),
+            "b": 0.5 * torch.randn(C, device=dev, generator=gen),
+            "rm": torch.randn(C, device=dev, generator=gen),
+            "rv": 0.5 + torch.rand(C, device=dev, generator=gen)}
+
+
+def _md2_bn_check(d: dict, relu: bool, m: float, eps: float) -> dict:
+    """The four kernels on ``d`` against their plain versions; raises past
+    a bar."""
+    import torch
+
+    x, g, w, b = d["x"], d["g"], d["w"], d["b"]
+    C = x.shape[1]
+    rk = (d["rm"].clone(), d["rv"].clone())
+    y, save = mbn.normalize_cuda(x, mbn.stats_cuda(x), w, b, *rk, m, eps, relu)
+    dx, dwb = mbn.bwd_elemt_cuda(g, x, save, w, b, mbn.bwd_reduce_cuda(g, x, save, w, b, relu),
+                                 relu)
+    mean, var, rstd = mbn.stats_plain(x, eps)
+    want_run = (d["rm"] * (1 - m) + mean * m, d["rv"] * (1 - m) + var * m)
+    gp, xhat = mbn._grad_in(g, x, save, w, b, relu)
+    sum_scale = torch.cat([(gp * xhat).abs().sum((0, 2, 3)), gp.abs().sum((0, 2, 3))])
+    # The backward's mask against the forward's: sum g' for integer g is
+    # exact in float32 (under 2^24 a channel), so it equals the sum of g
+    # where the forward's y > 0 unless one value's mask differs.
+    gi = d["gi"]
+    _, dwb_i = mbn.bwd_elemt_cuda(gi, x, save, w, b, mbn.bwd_reduce_cuda(gi, x, save, w, b, relu),
+                                  relu)
+    passed = y > 0 if relu else torch.ones_like(y, dtype=torch.bool)
+    want_i = torch.where(passed, gi.double(), 0.0).sum((0, 2, 3))
+    # The mean past four float32 roundings of its magnitude, in standard
+    # deviations: a mean 10^3 times its deviation is held to what float32
+    # can hold.
+    slack = 4 * torch.finfo(torch.float32).eps * mean.abs()
+    row = {
+        "mean_err_std": float((((save[:C] - mean).abs() - slack).clamp_min(0)
+                               / var.sqrt().clamp_min(1e-30)).max()),
+        "rstd_rel_err": float(((save[C:] - rstd).abs() / rstd).max()),
+        "channel0_mean_over_std": float(mean[0] / var[0].sqrt()),
+        "running_rel_err": max(float((a - w_).abs().max() / w_.abs().max())
+                               for a, w_ in zip(rk, want_run)),
+        "sum_rel_err": float(((dwb - mbn.bwd_reduce_plain(g, x, save, w, b, relu)).abs()
+                              / sum_scale.clamp_min(1e-30)).max()),
+        "y_bitwise": bool(torch.equal(y, mbn.normalize_plain(x, save, w, b, relu))),
+        "dx_bitwise": bool(torch.equal(dx, mbn.bwd_elemt_plain(g, x, save, w, b, dwb, relu))),
+        "mask_equal": bool(torch.equal(dwb_i[C:].double(), want_i)),
+        "masked_share": float(1 - passed.float().mean()),
+    }
+    # Two replays of a CUDA graph of the four launches: the same bits, and
+    # the eager launches' bits.
+    rg = (d["rm"].clone(), d["rv"].clone())
+
+    def four():
+        yy, ss = mbn.normalize_cuda(x, mbn.stats_cuda(x), w, b, *rg, m, eps, relu)
+        return (yy, ss, *mbn.bwd_elemt_cuda(g, x, ss, w, b,
+                                            mbn.bwd_reduce_cuda(g, x, ss, w, b, relu), relu))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        four()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = four()
+    graph.replay()
+    first = [o.clone() for o in outs]
+    graph.replay()
+    torch.cuda.synchronize()
+    row["graph_bitwise"] = all(torch.equal(a, o) for a, o in zip(first, outs)) and all(
+        torch.equal(a, e) for a, e in zip(first, (y, save, dx, dwb)))
+    ok = (row["mean_err_std"] <= MD2_BN_STAT_TOL and row["rstd_rel_err"] <= MD2_BN_STAT_TOL
+          and row["running_rel_err"] <= MD2_BN_RUNNING_RTOL
+          and row["sum_rel_err"] <= MD2_BN_SUM_TOL and row["y_bitwise"] and row["dx_bitwise"]
+          and row["mask_equal"] and row["graph_bitwise"])
+    if not ok:
+        raise AssertionError(f"md2 BatchNorm kernels at {tuple(x.shape)} {x.dtype} relu={relu}: "
+                             f"{row}")
+    return row
+
+
+def _md2_bn_timing(d: dict, relu: bool, m: float, eps: float) -> dict:
+    """Device us of each kernel, its plain version and its byte bound, and
+    the library's forward (``native_batch_norm``, then the ReLU) and
+    backward (the ReLU's, then ``native_batch_norm_backward``)."""
+    import torch
+
+    x, g, w, b = d["x"], d["g"], d["w"], d["b"]
+    rk = (d["rm"].clone(), d["rv"].clone())
+    partial = mbn.stats_cuda(x)
+    save = mbn.normalize_cuda(x, partial, w, b, *rk, m, eps, relu)[1]
+    pb = mbn.bwd_reduce_cuda(g, x, save, w, b, relu)
+    dwb = mbn.bwd_elemt_cuda(g, x, save, w, b, pb, relu)[1]
+    nat = torch.ops.aten.native_batch_norm
+    y_lib, mean_lib, invstd_lib = nat(x, w, b, rk[0], rk[1], True, m, eps)
+    if relu:
+        y_lib = torch.relu(y_lib)
+
+    def lib_fwd():
+        out = nat(x, w, b, rk[0], rk[1], True, m, eps)[0]
+        return torch.relu(out) if relu else out
+
+    def lib_bwd():
+        gg = torch.ops.aten.threshold_backward(g, y_lib, 0) if relu else g
+        return torch.ops.aten.native_batch_norm_backward(gg, x, w, rk[0], rk[1], mean_lib,
+                                                         invstd_lib, True, eps,
+                                                         [True, True, True])
+
+    nbytes = x.numel() * x.element_size()
+    us = {
+        "stats": 1e3 * device_ms(lambda: mbn.stats_cuda(x)),
+        "normalize": 1e3 * device_ms(
+            lambda: mbn.normalize_cuda(x, partial, w, b, *rk, m, eps, relu)),
+        "bwd_reduce": 1e3 * device_ms(lambda: mbn.bwd_reduce_cuda(g, x, save, w, b, relu)),
+        "bwd_elemt": 1e3 * device_ms(lambda: mbn.bwd_elemt_cuda(g, x, save, w, b, pb, relu)),
+    }
+    plain = {
+        "stats": 1e3 * device_ms(lambda: mbn.stats_plain(x, eps)),
+        "normalize": 1e3 * device_ms(lambda: mbn.normalize_plain(x, save, w, b, relu)),
+        "bwd_reduce": 1e3 * device_ms(lambda: mbn.bwd_reduce_plain(g, x, save, w, b, relu)),
+        "bwd_elemt": 1e3 * device_ms(lambda: mbn.bwd_elemt_plain(g, x, save, w, b, dwb, relu)),
+    }
+    bound = {k: n * nbytes / HBM_BYTES_PER_S * 1e6
+             for k, n in (("stats", 1), ("normalize", 2), ("bwd_reduce", 2), ("bwd_elemt", 3))}
+    return {"us": us, "plain_us": plain, "bound_us": bound,
+            "library_fwd_us": 1e3 * device_ms(lib_fwd),
+            "library_bwd_us": 1e3 * device_ms(lib_bwd)}
+
+
+def phase_md2_bn(dev) -> dict:
+    """Monodepth2's encoder BatchNorm (``ops/md2_batch_norm.py``): the four
+    kernels against their plain versions at cell A's five shapes and two
+    ragged ones, bf16 and float32, with and without the ReLU; then the
+    device times per shape and over the step's 60 layers."""
+    import torch
+
+    m, eps = 0.1, 1e-5
+    keys = ("stats", "normalize", "bwd_reduce", "bwd_elemt")
+    out = {"phase": "md2_bn", "checks": [], "timing": [], "step_us": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        step = {k: 0.0 for k in (*keys, "bound", "plain", "library")}
+        for i, shape in enumerate((*MD2_BN_LAYERS, *MD2_BN_RAGGED)):
+            d = _md2_bn_data(shape, dtype, dev, 23 + i)
+            for relu in (True, False):
+                row = _md2_bn_check(d, relu, m, eps)
+                out["checks"].append({"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                                      "relu": relu, **row})
+                if shape not in MD2_BN_LAYERS:
+                    continue
+                t = _md2_bn_timing(d, relu, m, eps)
+                out["timing"].append({"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                                      "relu": relu, **t})
+                n = MD2_BN_LAYERS[shape][0 if relu else 1]
+                for k in keys:
+                    step[k] += n * t["us"][k]
+                step["bound"] += n * sum(t["bound_us"].values())
+                step["plain"] += n * sum(t["plain_us"].values())
+                step["library"] += n * (t["library_fwd_us"] + t["library_bwd_us"])
+            del d
+            torch.cuda.empty_cache()
+        step["kernels"] = sum(step[k] for k in keys)
+        out["step_us"][str(dtype).split(".")[-1]] = step
+    emit(out)
+    return out
+
+
 def phase_md2(dev, smi: str, steps: int = 24):
     """Monodepth2 (``monodepth2_ms``, 1024x320, batch 12) on the main path:
     ``cli train`` with 8 steps a call (the CUDA graph) counts 12 border
-    forwards and 12 backwards, and 15 reprojection errors forward and 12
-    backward, a step; then the graphed step's ms, the allocator's peak and
+    forwards and 12 backwards, 15 reprojection errors forward and 12
+    backward, and 60 launches of each encoder BatchNorm kernel, a step;
+    then the graphed step's ms, the allocator's peak, the encoder BatchNorm
+    kernels' traced ms a step (and that no other BatchNorm kernel ran) and
     the kernels that take most of a traced call's device time: [name (its
     first 90 characters), ms a step, launches a step], largest first."""
     import torch
@@ -956,9 +1178,10 @@ def phase_md2(dev, smi: str, steps: int = 24):
         rc = cli.main(argv)
     assert rc == 0, printed.getvalue()[-2000:]
     launches = {k: _build.launch_count(k) for k in ("gen_fwd_border", "gen_bwd_uv_border",
-                                                     "reproj_fwd", "reproj_bwd")}
+                                                     "reproj_fwd", "reproj_bwd", *mbn.KERNELS)}
     assert launches == {"gen_fwd_border": 12 * 16, "gen_bwd_uv_border": 12 * 16,
-                        "reproj_fwd": 15 * 16, "reproj_bwd": 12 * 16}, launches
+                        "reproj_fwd": 15 * 16, "reproj_bwd": 12 * 16,
+                        **dict.fromkeys(mbn.KERNELS, 60 * 16)}, launches
     cfg = monodepth2_ms()
     torch.cuda.reset_peak_memory_stats(dev)
     state = create_state(cfg, dev)
@@ -976,9 +1199,18 @@ def phase_md2(dev, smi: str, steps: int = 24):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(state, batch)
         torch.cuda.synchronize()
+    by_name = profiling.device_kernels(prof)[0]
     top = [[name, us / 1e3 / 8, c / 8] for name, us, c in
-           profiling.heaviest_kernels(profiling.device_kernels(prof)[0], 25, 90)]
+           profiling.heaviest_kernels(by_name, 25, 90)]
+    # No PyTorch (or cuDNN) BatchNorm kernel: every one is the port's.
+    library_bn = [n for n in by_name
+                  if any(k in n.lower() for k in ("batch_norm", "batchnorm", "bn_fw", "bn_bw"))
+                  and not any(k in n for k in ops.symbols(mbn.KERNELS))]
+    assert not library_bn, library_bn
+    mine = {k: profiling.matching(by_name, names) for k, names in mbn.KERNELS.items()}
     row = {"phase": "md2", "argv": argv, "launches": launches, "top_kernels": top,
+           "md2_bn_traced_ms_per_step": {k: us / 1e3 / 8 for k, (us, _) in mine.items()},
+           "md2_bn_traced_launches_per_step": {k: c / 8 for k, (_, c) in mine.items()},
            "log": [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")],
            "graph_ms_per_step": ms, "frames_per_s": cfg.batch_size * 1e3 / ms,
            "peak_bytes": peak,
@@ -3947,6 +4179,7 @@ def main() -> int:
     rows = phase_kernels(_f32_config(cfg), dev)
     border = phase_border(dev)
     reproj = phase_reproj(dev)[0]
+    md2_bn = phase_md2_bn(dev)
     md2 = phase_md2(dev, smi)
     phase_slice("full_feat", dev)
     train_launches, premade_ms = phase_train("full_feat", dev)
@@ -3967,7 +4200,8 @@ def main() -> int:
                 "stereo_bwd_src": f"{pallas}:148", "gen_fwd": f"{pallas}:523",
                 "gen_fwd_aux": f"{pallas}:523", "gen_bwd_uv": f"{pallas}:651"}
     sources = {**dict.fromkeys(wk.KERNELS, "warp.cu"), **dict.fromkeys(rp.KERNELS, "reproj.cu"),
-               **dict.fromkeys(bn.KERNELS, "batch_norm.cu")}
+               **dict.fromkeys(bn.KERNELS, "batch_norm.cu"),
+               **dict.fromkeys(mbn.KERNELS, "md2_batch_norm.cu")}
     summary = []
     for kernel in ops.KERNELS:
         row = {"name": kernel, "route": "cuda",
@@ -4013,6 +4247,21 @@ def main() -> int:
                 "bound_ms": by["bfloat16"]["bound_ms"], "bound_by": by["bfloat16"]["bound_by"],
                 "library_ms": by["bfloat16"]["library_ms"], "dtype": "bfloat16",
                 "float32_ms": by["float32"]["ms"]})
+        elif kernel in mbn.KERNELS:
+            # Monodepth2's encoder BatchNorm (not a TPU kernel): the bf16
+            # step's times over its 60 layers, float32's beside them.
+            way = kernel.removeprefix("md2_bn_")
+            step = md2_bn["step_us"]
+            row.update({
+                "replaces": "none: F.batch_norm (train mode) and the F.relu after the stem's "
+                            "and every BasicBlock's bn1, in Monodepth2's ResNet18 encoders",
+                "path": "cli train --variant monodepth2_ms",
+                "launches_per_step": md2["launches"][kernel] // 16,
+                "ms": step["bfloat16"][way] / 1e3, "float32_ms": step["float32"][way] / 1e3,
+                "dtype": "bfloat16", "layers_ms": step["bfloat16"]["kernels"] / 1e3,
+                "layers_bound_ms": step["bfloat16"]["bound"] / 1e3,
+                "layers_plain_ms": step["bfloat16"]["plain"] / 1e3,
+                "layers_library_ms": step["bfloat16"]["library"] / 1e3})
         elif kernel in rp.KERNELS:
             way = kernel.removeprefix("reproj_")
             row.update({

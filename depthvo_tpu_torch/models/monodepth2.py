@@ -10,9 +10,12 @@ net's ``encoder.*`` is ``encoder.pth`` and its ``decoder.*`` is
 (torchvision's unused ``fc`` layer left out). Three departures, each the
 port's way of running its other networks:
 
-* BatchNorm is :class:`layers.BatchNorm` with torchvision's momentum (0.1)
-  and eps (1e-5): its running variance folds the biased batch variance,
-  and over a data-parallel mesh its statistics are the global batch's;
+* BatchNorm is :class:`EncoderBatchNorm`, a :class:`layers.BatchNorm` with
+  torchvision's momentum (0.1) and eps (1e-5): its running variance folds
+  the biased batch variance, over a data-parallel mesh its statistics are
+  the global batch's, and on one card in train mode it runs the port's
+  kernels (``ops/md2_batch_norm.py``), with the ReLU that follows the stem's
+  and each block's ``bn1`` fused into them;
 * ``compute_dtype="bfloat16"`` runs the convolutions under autocast; the
   disparity heads' sigmoid and the pose decoder's last 1x1 convolution,
   spatial mean and 0.01 scale run in float32;
@@ -28,14 +31,31 @@ import torch.nn.functional as F
 from torch import nn
 
 from depthvo_tpu_torch.models.depth_net import autocast_for
-from depthvo_tpu_torch.models.layers import BatchNorm
+from depthvo_tpu_torch.models.layers import _RECOMPUTE, BatchNorm
+from depthvo_tpu_torch.ops.md2_batch_norm import Md2BatchNorm
 
 BN_MOMENTUM = 0.1  # torchvision's nn.BatchNorm2d default
 NUM_CH_ENC = (64, 64, 128, 256, 512)
 
 
-def _bn(features: int) -> BatchNorm:
-    return BatchNorm(features, momentum=BN_MOMENTUM)
+class EncoderBatchNorm(BatchNorm):
+    """:class:`layers.BatchNorm` at torchvision's momentum, followed by a
+    ReLU when ``relu``. Eval mode and the global statistics of a mesh
+    (``group`` set) are the parent's, with ``F.relu`` after them; train
+    mode on one process is :class:`ops.md2_batch_norm.Md2BatchNorm`, the
+    ReLU fused (a remat recompute moves no running average)."""
+
+    def __init__(self, features: int, relu: bool = False):
+        super().__init__(features, momentum=BN_MOMENTUM)
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.group is not None:
+            y = super().forward(x)
+            return F.relu(y) if self.relu else y
+        return Md2BatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                  self.running_var, self.momentum, self.eps, self.relu,
+                                  not getattr(_RECOMPUTE, "on", False))
 
 
 class BasicBlock(nn.Module):
@@ -44,16 +64,16 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = EncoderBatchNorm(planes, relu=True)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = EncoderBatchNorm(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                                            _bn(planes))
+                                            EncoderBatchNorm(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn1(self.conv1(x))
         out = self.bn2(self.conv2(out))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
@@ -66,7 +86,7 @@ class ResNet18(nn.Module):
     def __init__(self, num_input_images: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, 2, 3, bias=False)
-        self.bn1 = _bn(64)
+        self.bn1 = EncoderBatchNorm(64, relu=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
         for i, planes in enumerate((64, 128, 256, 512)):
@@ -88,7 +108,7 @@ class ResnetEncoder(nn.Module):
     def forward(self, input_image: torch.Tensor) -> List[torch.Tensor]:
         e = self.encoder
         x = (input_image - 0.45) / 0.225
-        features = [F.relu(e.bn1(e.conv1(x)))]
+        features = [e.bn1(e.conv1(x))]
         features.append(e.layer1(e.maxpool(features[-1])))
         features.append(e.layer2(features[-1]))
         features.append(e.layer3(features[-1]))

@@ -27,9 +27,9 @@ Dispatch is on the tensor's device (``warp_kernels``): CPU tensors take
 the plain PyTorch versions, CUDA tensors the kernels, never both.
 
 :data:`KERNELS` names every CUDA kernel of the port: the tables of
-``warp_kernels``, ``batch_norm`` and ``reproj`` merged, each launch key
-(what ``_build.LAUNCHES`` counts) mapped to the device kernels one launch
-runs. The profiler's report and ``chip_smoke.py`` read it.
+``warp_kernels``, ``batch_norm``, ``md2_batch_norm`` and ``reproj``
+merged, each launch key (what ``_build.LAUNCHES`` counts) mapped to the
+device kernels one launch runs. The profiler's report and ``chip_smoke.py`` read it.
 """
 
 from __future__ import annotations
@@ -37,9 +37,10 @@ from __future__ import annotations
 from typing import Callable, Mapping, Sequence
 
 from depthvo_tpu_torch.geometry import warp as geo_warp
-from depthvo_tpu_torch.ops import batch_norm, reproj, warp_kernels
+from depthvo_tpu_torch.ops import batch_norm, md2_batch_norm, reproj, warp_kernels
 
-KERNELS = {**warp_kernels.KERNELS, **batch_norm.KERNELS, **reproj.KERNELS}
+KERNELS = {**warp_kernels.KERNELS, **batch_norm.KERNELS, **md2_batch_norm.KERNELS,
+           **reproj.KERNELS}
 
 
 def symbols(table: Mapping[str, Sequence[str]]) -> list:

@@ -65,7 +65,8 @@ _CATEGORIES = (
     ("memcpy", ("memcpy", "memset")),
     # Before the convolution keys, which would claim cuDNN's BatchNorm
     # kernels by their ``cudnn`` prefix. ``bn_`` takes cuDNN's (bn_fw_*,
-    # bn_bw_*) and the port's own (``ops.batch_norm.KERNELS``).
+    # bn_bw_*) and the mesh's (``ops.batch_norm.KERNELS``), ``batch_norm``
+    # PyTorch's and Monodepth2's encoders' (``ops.md2_batch_norm.KERNELS``).
     ("batch_norm", ("bn_", "batch_norm", "batchnorm")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop", "dgrad",
                      "wgrad")),

@@ -228,7 +228,8 @@ _CUDA = "".join(p.read_text() for p in sorted(
 # Every __global__ function of the port's CUDA sources, by name.
 _GLOBALS = sorted(re.findall(
     r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", _CUDA))
-_CATEGORY = {"warp_kernels": "warp_kernels", "batch_norm": "batch_norm", "reproj": "reprojection"}
+_CATEGORY = {"warp_kernels": "warp_kernels", "batch_norm": "batch_norm",
+             "md2_batch_norm": "batch_norm", "reproj": "reprojection"}
 
 
 def test_every_global_function_of_the_cuda_sources_is_parsed():
