@@ -104,6 +104,23 @@ with a nonzero exit code:
              PyTorch BatchNorm kernel in a traced call; the graphed step's
              ms, peak bytes and the kernels that take most of its device
              time.
+   manydepth - ManyDepth's cost volume (``ops/cost_volume.py``):
+             ``cost_volume_fwd`` against ``cost_volume_plain`` bit for bit
+             (volume, confidence, lowest cost; two launches equal) in
+             bfloat16 and float32 at the cell's shape (12 x 64 x 80 x 256,
+             96 bins) and at ragged ones, with a moving row, a zero pose, a
+             row whose samples all leave the map and a static row; its us
+             (the wrapper: the NHWC copy and the kernel) beside the byte
+             bound and the plain composition's; then ``cli train
+             --variant manydepth`` (8 steps a call): 1 cost_volume, 16
+             border warps each way, 18 reprojection errors forward and 16
+             backward a step; two graphed steps against two eager ones
+             (float32 at 128x384, batch 4, cuDNN deterministic, the
+             tie-breaking noise off), within four times the gap of two
+             eager runs (atomics in the backward part them) or
+             METRIC_RTOL / GRAD_RTOL;
+             the graphed full-size step's ms, peak bytes and heaviest
+             kernels.
 4. slice   - the held-out loss pass (``make_eval_step`` + ``run_validation``,
              what ``cli test`` runs) on full_feat at 608x160, batch 4:
              float32 with TF32 off against the same pass on the CPU (plain
@@ -378,6 +395,7 @@ import time
 # timer (every kernel time below) and its profiler-trace reduction.
 from depthvo_tpu_torch import ops
 from depthvo_tpu_torch.ops import _build, batch_norm as bn, md2_batch_norm as mbn, reproj as rp
+from depthvo_tpu_torch.ops import cost_volume as cv
 from depthvo_tpu_torch.ops import warp_kernels as wk
 from depthvo_tpu_torch.utils import profiling
 from depthvo_tpu_torch.utils.profiling import device_ms
@@ -1220,6 +1238,185 @@ def phase_md2(dev, smi: str, steps: int = 24):
     return row
 
 
+# The cost volume's shapes: ManyDepth's cell (batch 12, a quarter of
+# 1024x320, 96 bins); ragged ones (H * W not a multiple of a block, two
+# bins).
+MF_CV_SHAPES = ((12, 80, 256, 96), (3, 37, 101, 96), (2, 5, 7, 2))
+
+
+def _mf_cv_inputs(B: int, h: int, w: int, D: int, dtype, dev, seed: int) -> tuple:
+    """The cost volume's arguments: random features, row 0 moving, row 1
+    a zero pose, row 2 samples that all leave the map, the last row static
+    (its lookup map the current one); KITTI-like intrinsics at (h, w)."""
+    import torch
+
+    from depthvo_tpu_torch.geometry import monodepth2 as geo
+    from depthvo_tpu_torch.geometry.se3 import _matmul
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cur = torch.rand(B, cv.CHANNELS, h, w, generator=g, device=dev).to(dtype)
+    look = torch.rand(B, cv.CHANNELS, h, w, generator=g, device=dev).to(dtype)
+    look[-1] = cur[-1]
+    T = torch.eye(4, device=dev).repeat(B, 1, 1)
+    T[:, 0, 3] = 0.02 + 0.05 * torch.rand(B, generator=g, device=dev)
+    T[:, 2, 3] = -0.3 - 0.2 * torch.rand(B, generator=g, device=dev)
+    if B > 2:
+        T[1] = 0.0
+        T[2, 0, 3] = 1e3
+    K = torch.tensor([[0.58 * w, 0.0, 0.5 * w], [0.0, 1.92 * h, 0.5 * h], [0.0, 0.0, 1.0]],
+                     device=dev).repeat(B, 1, 1)
+    bins = torch.linspace(0.5, 10.0, D, device=dev)
+    rays = geo.pixel_rays(K, h, w)
+    P = _matmul(geo.homogeneous_K(K), T)[:, :3].contiguous()
+    return cur, look, rays, P, bins, T.flatten(1).sum(1) != 0
+
+
+def phase_manydepth(dev, smi: str, steps: int = 24):
+    """ManyDepth (``manydepth``): the cost volume kernel against its plain
+    version and timed, then the main path: ``cli train`` launch counts a
+    step, the graphed step against eager steps, and the graphed full-size
+    step's ms, peak bytes and heaviest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from depthvo_tpu_torch import cli
+    from depthvo_tpu_torch.configs.base import ModelConfig, manydepth
+    from depthvo_tpu_torch.data.synthetic import SyntheticScenes
+    from depthvo_tpu_torch.train import loop, manydepth as mf_train
+    from depthvo_tpu_torch.train.state import create_state
+
+    out = {"phase": "manydepth", "checks": []}
+    for B, h, w, D in MF_CV_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _mf_cv_inputs(B, h, w, D, dtype, dev, seed=B * 1000 + h)
+            got = cv.cost_volume_fwd_cuda(*args)
+            again = cv.cost_volume_fwd_cuda(*args)
+            want = cv.cost_volume_plain(*args)
+            torch.cuda.synchronize(dev)
+            check = {"shape": [B, cv.CHANNELS, h, w, D], "dtype": str(dtype).split(".")[-1],
+                     "equal": [bool(torch.equal(a, b)) for a, b in zip(got, want)],
+                     "equal_share": [float((a == b).float().mean()) for a, b in zip(got, want)],
+                     "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
+                     "confident_share": float(want[1].mean())}
+            out["checks"].append(check)
+            assert all(check["equal"]) and check["bitwise_repeat"], check
+    B, h, w, D = MF_CV_SHAPES[0]
+    args = _mf_cv_inputs(B, h, w, D, torch.bfloat16, dev, seed=7)
+    nbytes = B * h * w * (2 * cv.CHANNELS * 2 + D * 4 + 8)
+    bound, by = bound_ms(nbytes, 0)
+    out["timing"] = {
+        "shape": [B, cv.CHANNELS, h, w, D], "dtype": "bfloat16",
+        "us": 1e3 * device_ms(lambda: cv.cost_volume_fwd_cuda(*args)),
+        "nhwc_copy_us": 1e3 * device_ms(lambda: args[1].permute(0, 2, 3, 1).contiguous()),
+        "bound_us": 1e3 * bound, "bound_by": by, "bytes": nbytes,
+        "plain_us": 1e3 * device_ms(lambda: cv.cost_volume_plain(*args), runs=3, per_run=1)}
+    out["timing"]["roofline"] = 100 * out["timing"]["bound_us"] / out["timing"]["us"]
+    emit({**out, "phase": "manydepth_kernel"})
+    kernel = out
+
+    _build.reset_launches()
+    argv = ["train", "--variant", "manydepth", "--steps", "16", "--steps-per-call", "8",
+            "--device", "cuda", "--log-every", "8"]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(argv)
+    assert rc == 0, printed.getvalue()[-2000:]
+    keys = ("cost_volume", "gen_fwd_border", "gen_bwd_uv_border", "reproj_fwd", "reproj_bwd",
+            *mbn.KERNELS)
+    launches = {k: _build.launch_count(k) / 16 for k in keys}
+    assert launches["cost_volume"] == 1 and launches["gen_fwd_border"] == 16, launches
+    assert launches["gen_bwd_uv_border"] == 16 and launches["reproj_fwd"] == 18, launches
+    assert launches["reproj_bwd"] == 16, launches
+    out = {"phase": "manydepth", "kernel": kernel, "argv": argv, "launches_per_step": launches,
+           "log": [ln for ln in printed.getvalue().splitlines() if ln.startswith("step ")]}
+
+    # The graphed step against as many eager steps: float32, cuDNN
+    # deterministic, the tie-breaking noise off; the call's first step is
+    # its eager warm-up, the second a replay.
+    saved = mf_train.NOISE_STD
+    mf_train.NOISE_STD = 0.0
+    backends = torch.backends
+    prev = (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32,
+            backends.cudnn.deterministic)
+    try:
+        small = manydepth(batch_size=4, model=ModelConfig(
+            height=128, width=384, num_scales=4, max_disp=9.99, min_disp=0.01,
+            s2d_finest=False, compute_dtype="float32"))
+        scenes = SyntheticScenes(small, seed=5, num_scenes=8, u8=True)
+        host = [scenes.batch(4) for _ in range(2)]
+        backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = False
+        backends.cudnn.deterministic = True
+        graphed, g_m = loop.make_scan_train_step(small, device=dev)(
+            create_state(small, dev), loop.stack_batches(host))
+        runs = []
+        for _ in range(2):  # two eager runs: how far the card's atomics part them
+            eager, step = create_state(small, dev), loop.make_train_step(small, device=dev)
+            for b in host:
+                eager, e_m = step(eager, b)
+            runs.append((eager, e_m))
+        torch.cuda.synchronize(dev)
+        (eager, e_m), (again, a_m) = runs
+        g, e, a = _state_leaves(graphed), _state_leaves(eager), _state_leaves(again)
+        out["graph_vs_eager"] = {
+            "steps": len(host), "tensors": len(e),
+            "tensors_not_bitwise_equal": sum(not torch.equal(g[k], e[k]) for k in e),
+            "metrics_max_rel": max(abs(float(g_m[k]) - float(e_m[k]))
+                                   / max(abs(float(e_m[k])), 1e-30) for k in e_m),
+            "trackers": [float(graphed.models.depth.encoder.min_depth_bin),
+                         float(eager.models.depth.encoder.min_depth_bin),
+                         float(graphed.models.depth.encoder.max_depth_bin),
+                         float(eager.models.depth.encoder.max_depth_bin)],
+            "params_max_rel": max(_rel(g[k], e[k]) for k in e if k.endswith("weight")),
+            "eager_vs_eager_metrics_max_rel": max(abs(float(a_m[k]) - float(e_m[k]))
+                                                  / max(abs(float(e_m[k])), 1e-30)
+                                                  for k in e_m),
+            "eager_vs_eager_params_max_rel": max(_rel(a[k], e[k]) for k in e
+                                                 if k.endswith("weight"))}
+        del graphed, eager, again, runs
+    finally:
+        mf_train.NOISE_STD = saved
+        (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32,
+         backends.cudnn.deterministic) = prev
+
+    cfg = manydepth()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = create_state(cfg, dev)
+    scenes = SyntheticScenes(cfg, seed=3, num_scenes=cfg.batch_size, u8=True)
+    batch = loop.stack_batches([scenes.fixed_batch(cfg.batch_size)] * 8)
+    step = loop.make_scan_train_step(cfg, device=dev)
+    state, m = step(state, batch)  # the eager step and the capture
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps // 8):
+        state, m = step(state, batch)
+    torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t0) / (steps // 8 * 8)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    by_name, busy = profiling.device_kernels(prof)
+    mine = profiling.matching(by_name, cv.KERNELS["cost_volume"])
+    out.update({
+        "top_kernels": [[name, us / 1e3 / 8, c / 8] for name, us, c in
+                        profiling.heaviest_kernels(by_name, 25, 90)],
+        "cost_volume_traced_us_per_step": mine[0] / 8, "cost_volume_traced_launches": mine[1],
+        "device_busy_ms_per_step": busy / 1e3 / 8,
+        "graph_ms_per_step": ms, "frames_per_s": cfg.batch_size * 1e3 / ms, "peak_bytes": peak,
+        "metrics": {k: float(v) for k, v in m.items() if not k.startswith("loss/")},
+        "loss_total": float(m["loss/total"]), "smi": smi})
+    emit({k: v for k, v in out.items() if k != "kernel"})
+    del state
+    torch.cuda.empty_cache()
+    # Graph against eager within the card's own spread between two eager runs
+    # (the bilinear upsampling's and reflection pad's backward add with
+    # atomics), or the smoke's tolerances where that spread is smaller.
+    ge = out["graph_vs_eager"]
+    assert ge["metrics_max_rel"] <= max(METRIC_RTOL, 4 * ge["eager_vs_eager_metrics_max_rel"]), ge
+    assert ge["params_max_rel"] <= max(GRAD_RTOL, 4 * ge["eager_vs_eager_params_max_rel"]), ge
+    return out
+
+
 def bn_shapes(cfg, dev) -> list:
     """(N, C, H, W) of every BatchNorm layer's input in the train step,
     in order: the DepthNet's, from forward hooks on one batch."""
@@ -1734,9 +1931,7 @@ def _check_bn_counts(n: int) -> dict:
 def _state_leaves(state) -> dict:
     """Every tensor of a train state by name: parameters, BatchNorm
     statistics and the solver's tensors."""
-    from depthvo_tpu_torch.train.state import Models
-
-    out = {f"{n}.{k}": v for n, net in zip(Models._fields, state.models) if net is not None
+    out = {f"{n}.{k}": v for n, net in zip(state.models._fields, state.models) if net is not None
            for k, v in net.state_dict().items() if v.is_floating_point()}
 
     def walk(tree, path):
@@ -4181,6 +4376,7 @@ def main() -> int:
     reproj = phase_reproj(dev)[0]
     md2_bn = phase_md2_bn(dev)
     md2 = phase_md2(dev, smi)
+    mf = phase_manydepth(dev, smi)
     phase_slice("full_feat", dev)
     train_launches, premade_ms = phase_train("full_feat", dev)
     scan = phase_scan("full_feat", dev, smi)
@@ -4201,7 +4397,8 @@ def main() -> int:
                 "gen_fwd_aux": f"{pallas}:523", "gen_bwd_uv": f"{pallas}:651"}
     sources = {**dict.fromkeys(wk.KERNELS, "warp.cu"), **dict.fromkeys(rp.KERNELS, "reproj.cu"),
                **dict.fromkeys(bn.KERNELS, "batch_norm.cu"),
-               **dict.fromkeys(mbn.KERNELS, "md2_batch_norm.cu")}
+               **dict.fromkeys(mbn.KERNELS, "md2_batch_norm.cu"),
+               **dict.fromkeys(cv.KERNELS, "cost_volume.cu")}
     summary = []
     for kernel in ops.KERNELS:
         row = {"name": kernel, "route": "cuda",
@@ -4262,6 +4459,17 @@ def main() -> int:
                 "layers_bound_ms": step["bfloat16"]["bound"] / 1e3,
                 "layers_plain_ms": step["bfloat16"]["plain"] / 1e3,
                 "layers_library_ms": step["bfloat16"]["library"] / 1e3})
+        elif kernel in cv.KERNELS:
+            row.update({
+                "replaces": "none: ManyDepth's ResnetEncoderMatching.match_features (grid_sample "
+                            "on 96 copies of each row's lookup features), its confidence mask "
+                            "and lowest-cost argmin",
+                "path": "cli train --variant manydepth",
+                "launches_per_step": mf["launches_per_step"][kernel],
+                "ms": mf["kernel"]["timing"]["us"] / 1e3,
+                "bound_ms": mf["kernel"]["timing"]["bound_us"] / 1e3,
+                "bound_by": mf["kernel"]["timing"]["bound_by"],
+                "plain_ms": mf["kernel"]["timing"]["plain_us"] / 1e3})
         elif kernel in rp.KERNELS:
             way = kernel.removeprefix("reproj_")
             row.update({

@@ -113,7 +113,7 @@ from depthvo_tpu_torch.utils.device import resolve_device
 from depthvo_tpu_torch.utils.logging import MetricLogger
 
 # A variant's batch when no --batch-size is given (4 for the others).
-_VARIANT_BATCH = {"monodepth2_ms": 12}
+_VARIANT_BATCH = {"monodepth2_ms": 12, "manydepth": 12}
 HELD_OUT_SEED = 1_000_003  # synthetic validation scenes: disjoint from training's
 
 
@@ -917,10 +917,12 @@ def _train(args, device, mesh) -> int:
               f"backend={torch.distributed.get_backend(mesh.group)}")
     cfg = _round_batch(cfg, mesh)
     h, w = cfg.model.height, cfg.model.width
-    prev = cfg.architecture == "monodepth2"  # Monodepth2 reads frame t-1 too
+    extras = config_base.batch_extras(cfg)
+    prev = "image_p" in extras  # Monodepth2 and ManyDepth read frame t-1 too
     if prev and (args.train_list or args.kitti_odom_root or args.val_list):
-        print("monodepth2 reads frames t-1, t and t+1: train from --kitti-root drives or "
-              "synthetic scenes (train lists and odometry sequences hold no frame t-1)")
+        print(f"{cfg.architecture} reads frames t-1, t and t+1: train from --kitti-root "
+              "drives or synthetic scenes (train lists and odometry sequences hold no "
+              "frame t-1)")
         return 2
     # Batches stay uint8 until they are on the device (the train step
     # normalises there); the C++ ring emits uint8 too.
@@ -933,7 +935,8 @@ def _train(args, device, mesh) -> int:
         print(f"KITTI odometry: {len(ds)} training samples from seqs {seqs}")
     elif args.kitti_root:
         drives = _split(args.drives)
-        ds = kitti.KittiRawStereo(args.kitti_root, drives, h, w, u8=True, prev=prev)
+        ds = kitti.KittiRawStereo(args.kitti_root, drives, h, w, u8=True, prev=prev,
+                                  aug_draws="aug_u" in extras)
         print(f"KITTI raw: {len(ds)} training samples from {len(drives)} drives")
     else:
         ds = None

@@ -9,7 +9,9 @@ from depthvo_tpu_torch.configs.base import (  # noqa: F401
     full_feat,
     tiny_test,
     monodepth2_ms,
+    manydepth,
 )
 
 # The variants ``cli train`` and ``utils.profiling`` take by name.
-VARIANTS = ["stereo", "temporal_stereo", "full_feat", "tiny_test", "monodepth2_ms"]
+VARIANTS = ["stereo", "temporal_stereo", "full_feat", "tiny_test", "monodepth2_ms",
+            "manydepth"]

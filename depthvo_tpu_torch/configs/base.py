@@ -128,7 +128,21 @@ class OptimConfig:
     iter_size: int = 1
 
 
-ARCHITECTURES = ("depthvo_feat", "monodepth2")
+ARCHITECTURES = ("depthvo_feat", "monodepth2", "manydepth")
+
+# The batch keys each architecture reads besides Depth-VO-Feat's
+# ('image_t', 'image_r', 'image_s', 'K', 'baseline'): frame t-1
+# ('image_p') and ManyDepth's per-row augmentation draws ('aug_u', one
+# float in [0, 1) a row). The one place that says what an architecture's
+# batches hold: the data sources, the CLI and the loss graphs read it.
+BATCH_EXTRAS = {"depthvo_feat": (), "monodepth2": ("image_p",),
+                "manydepth": ("image_p", "aug_u")}
+
+
+def batch_extras(cfg) -> tuple:
+    """:data:`BATCH_EXTRAS` of ``cfg``'s architecture (a config without
+    the field is Depth-VO-Feat's)."""
+    return BATCH_EXTRAS[getattr(cfg, "architecture", "depthvo_feat")]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +151,11 @@ class ExperimentConfig:
     # The networks and loss graph: "depthvo_feat" (Zhan et al., CVPR 2018:
     # the staged recipe below) or "monodepth2" (Godard et al., ICCV 2019:
     # ResNet18 depth and pose nets, per-pixel minimum reprojection with
-    # auto-masking; train/monodepth2.py). Monodepth2 reads the switches as
-    # its frames: use_temporal adds frames -1 and +1, use_stereo the
-    # stereo view "s".
+    # auto-masking; train/monodepth2.py) or "manydepth" (Watson et al.,
+    # CVPR 2021: a plane-sweep cost volume against frame -1 inside the
+    # depth encoder, a jointly trained Monodepth2 teacher; train/
+    # manydepth.py). Monodepth2 reads the switches as its frames:
+    # use_temporal adds frames -1 and +1, use_stereo the stereo view "s".
     architecture: str = "depthvo_feat"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
@@ -342,6 +358,42 @@ def monodepth2_ms(**overrides) -> ExperimentConfig:
                           lr_decay_steps=15 * steps, lr_decay_factor=0.1,
                           total_steps=20 * steps, warmup_steps=0),
         use_stereo=True,
+        use_temporal=True,
+        use_feature=False,
+        smooth_weight=1e-3,
+        ssim_weight=0.85,
+        batch_size=12,
+    )
+    kwargs.update(overrides)
+    return ExperimentConfig(**kwargs)
+
+
+# ManyDepth's KITTI split (eigen_zhou, as Monodepth2's): epochs of batch 12.
+MANYDEPTH_STEPS_PER_EPOCH = 39810 // 12
+
+
+def manydepth(**overrides) -> ExperimentConfig:
+    """ManyDepth (Watson et al., "The Temporal Opportunist", CVPR 2021,
+    arXiv:2104.14540; github.com/nianticlabs/manydepth ``options.py`` and
+    ``trainer.py``) as its released ``KITTI_HR`` model trains, before
+    ``freeze_teacher_epoch`` (teacher and pose net trained): 1024x320,
+    scales 0-3, batch 12, frames 0, -1, +1, matching frames 0 and -1; a
+    ResNet18 multi-frame depth net with a cost volume of 96 depth bins
+    linear between the trackers (0.1 and 10.0 at the start) at a quarter of
+    the resolution; a Monodepth2 ResNet18 teacher; depth 0.1-100; SSIM
+    weight 0.85, smoothness 1e-3; static-camera and zero-cost-volume
+    shares of 0.25 each; Adam at 1e-4, x0.1 after 15 epochs, no weight
+    decay, no clipping."""
+    steps = MANYDEPTH_STEPS_PER_EPOCH
+    kwargs = dict(
+        name="manydepth",
+        architecture="manydepth",
+        model=ModelConfig(height=320, width=1024, num_scales=4, max_disp=9.99, min_disp=0.01,
+                          s2d_finest=False, decoder_features=(256, 128, 64, 32, 16)),
+        optim=OptimConfig(learning_rate=1e-4, grad_clip_norm=None, lr_policy="step",
+                          lr_decay_steps=15 * steps, lr_decay_factor=0.1,
+                          total_steps=20 * steps, warmup_steps=0),
+        use_stereo=False,
         use_temporal=True,
         use_feature=False,
         smooth_weight=1e-3,

@@ -195,14 +195,22 @@ def read_odometry_projections(calib_path: str) -> Tuple[np.ndarray, np.ndarray]:
     return mats["P2"], mats["P3"]
 
 
+# The stream of ManyDepth's per-row draws: the iterator's seed xor this.
+AUG_SEED = 0x6D66
+
+
 class KittiRawStereo:
     """Stereo + temporal triples from KITTI raw drives (training data).
 
     Produces batches matching the train-loop contract: image_t (left, t),
     image_r (right, t), image_s (left, t+1), K, baseline. With ``prev``
-    (Monodepth2's frames) also image_p (left, t-1), and a frame is a
-    sample only where its drive has both t-1 and t+1.
+    (Monodepth2's and ManyDepth's frames) also image_p (left, t-1), and a
+    frame is a sample only where its drive has both t-1 and t+1. With
+    ``aug_draws`` (ManyDepth's) each batch also carries aug_u, one float
+    in [0, 1) a row, from a stream of the iterator's seed.
     """
+
+    aug_draws = False  # the readers that share the iterator draw none
 
     def __init__(
         self,
@@ -213,8 +221,10 @@ class KittiRawStereo:
         orig_size: Tuple[int, int] | None = None,
         u8: bool = False,
         prev: bool = False,
+        aug_draws: bool = False,
     ):
         self.root = root
+        self.aug_draws = aug_draws
         self.height, self.width = height, width
         # u8=True: batches carry raw uint8 frames (4x fewer host->device
         # bytes; the train step normalizes on-device — train/loop.py).
@@ -290,6 +300,25 @@ class KittiRawStereo:
         return out
 
     def iterator(
+        self,
+        batch_size: int,
+        seed: int = 0,
+        shuffle: bool = True,
+        num_workers: int = 4,
+        native_ring: bool | None = None,
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Infinite epoch-shuffled batch iterator (:meth:`_iterator`), with
+        ``aug_draws`` each batch's ``aug_u``."""
+        batches = self._iterator(batch_size, seed, shuffle, num_workers, native_ring)
+        if not self.aug_draws:
+            yield from batches
+            return
+        draws = np.random.default_rng(seed ^ AUG_SEED)
+        for batch in batches:
+            batch["aug_u"] = draws.random(batch_size, dtype=np.float32)
+            yield batch
+
+    def _iterator(
         self,
         batch_size: int,
         seed: int = 0,
@@ -383,7 +412,7 @@ class KittiRawStereo:
                     imgs, idx = ring.next()
                 except ValueError:
                     # Undecodable image in the set: bail to the PIL path.
-                    yield from self.iterator(
+                    yield from self._iterator(
                         batch_size, seed=seed, shuffle=shuffle, native_ring=False
                     )
                     return

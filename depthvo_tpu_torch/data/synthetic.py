@@ -24,7 +24,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
-from depthvo_tpu_torch.configs.base import ExperimentConfig
+from depthvo_tpu_torch.configs.base import ExperimentConfig, batch_extras
+from depthvo_tpu_torch.data.kitti import AUG_SEED
 
 
 def _smooth_texture(rng: np.random.Generator, h: int, w: int, c: int = 3) -> np.ndarray:
@@ -120,10 +121,15 @@ class SyntheticScenes:
             ],
             np.float32,
         )
-        # Monodepth2 also reads frame t-1 (``image_p``); the other
-        # architecture's batches keep exactly their keys and draws.
+        # Monodepth2 and ManyDepth also read frame t-1 (``image_p``), and
+        # ManyDepth a draw per row (``aug_u``, from its own stream); the
+        # other architecture's batches keep exactly their keys and draws.
+        extras = batch_extras(config)
         self.keys = ("image_t", "image_r", "image_s") + (
-            ("image_p",) if getattr(config, "architecture", "") == "monodepth2" else ())
+            ("image_p",) if "image_p" in extras else ())
+        self._aug_seed = seed ^ AUG_SEED if "aug_u" in extras else None
+        self._aug_rng = (np.random.default_rng(self._aug_seed)
+                         if self._aug_seed is not None else None)
         self._scenes = [self._make_scene(rng) for _ in range(num_scenes)]
         if u8:
             for s in self._scenes:
@@ -235,13 +241,19 @@ class SyntheticScenes:
         idx = rng.integers(0, len(self._scenes), size=batch_size)
         keys = self.keys + ("K", "baseline")
         out = {k: np.stack([self._scenes[i][k] for i in idx]) for k in keys}
+        if self._aug_rng is not None:
+            out["aug_u"] = self._aug_rng.random(batch_size, dtype=np.float32)
         return out
 
     def fixed_batch(self, batch_size: int) -> Dict[str, np.ndarray]:
         """Deterministic batch (first scenes) — for overfit tests."""
         idx = [i % len(self._scenes) for i in range(batch_size)]
         keys = self.keys + ("K", "baseline")
-        return {k: np.stack([self._scenes[i][k] for i in idx]) for k in keys}
+        out = {k: np.stack([self._scenes[i][k] for i in idx]) for k in keys}
+        if self._aug_seed is not None:
+            out["aug_u"] = np.random.default_rng(self._aug_seed).random(batch_size,
+                                                                        dtype=np.float32)
+        return out
 
     def iterator(self, batch_size: int, fixed: bool = False) -> Iterator[Dict[str, np.ndarray]]:
         while True:

@@ -19,6 +19,8 @@
 * ``border_warp_chw`` - Monodepth2's warp: a frozen source sampled
   anywhere at normalised coordinates with border padding (``gen_fwd_border``),
   differentiated with respect to the coordinates (``gen_bwd_uv_border``).
+* ``cost_volume.cost_volume`` - ManyDepth's plane-sweep cost volume,
+  forward only (``cost_volume``).
 * ``fused_warp`` - the general warp with a differentiated source: the
   plain ``geometry.warp.inverse_warp`` on both devices, as in the
   reference, whose TPU kernels do not cover this case.
@@ -27,9 +29,9 @@ Dispatch is on the tensor's device (``warp_kernels``): CPU tensors take
 the plain PyTorch versions, CUDA tensors the kernels, never both.
 
 :data:`KERNELS` names every CUDA kernel of the port: the tables of
-``warp_kernels``, ``batch_norm``, ``md2_batch_norm`` and ``reproj``
-merged, each launch key (what ``_build.LAUNCHES`` counts) mapped to the
-device kernels one launch runs. The profiler's report and ``chip_smoke.py`` read it.
+``warp_kernels``, ``batch_norm``, ``md2_batch_norm``, ``reproj`` and
+``cost_volume`` merged, each launch key (what ``_build.LAUNCHES`` counts)
+mapped to the device kernels one launch runs. The profiler's report and ``chip_smoke.py`` read it.
 """
 
 from __future__ import annotations
@@ -37,10 +39,10 @@ from __future__ import annotations
 from typing import Callable, Mapping, Sequence
 
 from depthvo_tpu_torch.geometry import warp as geo_warp
-from depthvo_tpu_torch.ops import batch_norm, md2_batch_norm, reproj, warp_kernels
+from depthvo_tpu_torch.ops import batch_norm, cost_volume, md2_batch_norm, reproj, warp_kernels
 
 KERNELS = {**warp_kernels.KERNELS, **batch_norm.KERNELS, **md2_batch_norm.KERNELS,
-           **reproj.KERNELS}
+           **reproj.KERNELS, **cost_volume.KERNELS}
 
 
 def symbols(table: Mapping[str, Sequence[str]]) -> list:

@@ -59,7 +59,7 @@ from depthvo_tpu_torch.models import layers
 from depthvo_tpu_torch.models.layers import resize_bilinear_chw
 from depthvo_tpu_torch.ops import _build
 from depthvo_tpu_torch.parallel import distributed as pdist, mesh as pmesh
-from depthvo_tpu_torch.train import monodepth2 as md2_train, optim
+from depthvo_tpu_torch.train import manydepth as mf_train, monodepth2 as md2_train, optim
 from depthvo_tpu_torch.train.state import (
     DTYPES,
     Models,
@@ -75,8 +75,9 @@ from depthvo_tpu_torch.utils.images import to_unit
 
 def compute_losses(config: ExperimentConfig, models: Models,
                    batch: Dict[str, torch.Tensor], train: bool = False, mesh=None):
-    """Evaluate the staged loss graph (a ``"monodepth2"`` config: its own,
-    ``train.monodepth2.compute_losses``).
+    """Evaluate the staged loss graph (a ``"monodepth2"`` or ``"manydepth"``
+    config: its own, ``train.monodepth2.compute_losses`` or
+    ``train.manydepth.compute_losses``).
 
     Args:
       models: the stage's networks (``train.state.Models``), on the
@@ -100,6 +101,8 @@ def compute_losses(config: ExperimentConfig, models: Models,
     """
     if config.architecture == "monodepth2":
         return md2_train.compute_losses(config, models, batch, train, mesh)
+    if config.architecture == "manydepth":
+        return mf_train.compute_losses(config, models, batch, train, mesh)
     if config.use_feature and not config.use_temporal:
         raise ValueError(
             "use_feature requires use_temporal (the feature loss warps "
@@ -889,7 +892,8 @@ def _finite_check(state: TrainState) -> Callable[[Dict[str, torch.Tensor], int],
     finite, naming step ``last`` and the first tensor that is not. One flag
     per tensor on the device, stacked, then one host read."""
     named = list(param_tree(state.models).items())
-    named += [(f"{net_name}.{k}", b) for net_name, net in zip(Models._fields, state.models)
+    named += [(f"{net_name}.{k}", b) for net_name, net in zip(state.models._fields,
+                                                                state.models)
               if net is not None for k, b in net.named_buffers() if b.is_floating_point()]
 
     def check(metrics: Dict[str, torch.Tensor], last: int) -> None:

@@ -23,6 +23,7 @@ from torch import nn
 
 from depthvo_tpu_torch.configs.base import ExperimentConfig
 from depthvo_tpu_torch.models import DepthNet, FeatNet, OdomNet
+from depthvo_tpu_torch.models.manydepth import ManyDepthNet
 from depthvo_tpu_torch.models.monodepth2 import Monodepth2DepthNet, Monodepth2PoseNet
 from depthvo_tpu_torch.train import optim
 
@@ -47,6 +48,22 @@ class Models(NamedTuple):
         return self
 
 
+class ManyDepthModels(NamedTuple):
+    """ManyDepth's networks: the multi-frame depth net, the pose net and
+    the Monodepth2 teacher (parameter names ``depth.*``, ``odom.*``,
+    ``teacher.*``). Code that walks a stage's networks reads the names
+    from the instance's ``_fields``."""
+
+    depth: ManyDepthNet
+    odom: Monodepth2PoseNet
+    teacher: Monodepth2DepthNet
+
+    def train(self, mode: bool = True) -> "ManyDepthModels":
+        for net in self:
+            net.train(mode)
+        return self
+
+
 def compute_dtype(config: ExperimentConfig) -> torch.dtype:
     try:
         return DTYPES[config.model.compute_dtype]
@@ -58,7 +75,10 @@ def compute_dtype(config: ExperimentConfig) -> torch.dtype:
 
 def stage_nets(config: ExperimentConfig):
     """Names of the networks the config's stage uses. Monodepth2's pose
-    net takes the odometry net's place, where frames -1 and +1 are used."""
+    net takes the odometry net's place, where frames -1 and +1 are used;
+    ManyDepth's are :class:`ManyDepthModels`'."""
+    if config.architecture == "manydepth":
+        return ManyDepthModels._fields
     return ("depth",) + (("odom",) if config.use_temporal else ()) + (
         ("feat",) if config.use_feature else ()
     )
@@ -81,6 +101,22 @@ def _monodepth2_models(config: ExperimentConfig, depth_quant: str) -> Models:
     return Models(depth.eval(), pose, None)
 
 
+def _manydepth_models(config: ExperimentConfig, depth_quant: str) -> ManyDepthModels:
+    """ManyDepth's three networks (``models/manydepth.py``,
+    ``models/monodepth2.py``), on the CPU, in eval mode."""
+    mc = config.model
+    unsupported = [name for name in ("fast_final_upsample", "subpixel_head", "s2d_finest",
+                                     "remat") if getattr(mc, name)]
+    if depth_quant != "off" or unsupported:
+        raise ValueError(
+            "the manydepth architecture has no int8 path or DepthVO-Feat head variant; got "
+            f"depth_quant={depth_quant!r}, model options {unsupported}")
+    dt = compute_dtype(config)
+    depth = ManyDepthNet(tuple(mc.decoder_features), mc.num_scales, dt)
+    teacher = Monodepth2DepthNet(tuple(mc.decoder_features), mc.num_scales, dt)
+    return ManyDepthModels(depth, Monodepth2PoseNet(dt), teacher).train(False)
+
+
 def build_models(config: ExperimentConfig, depth_quant: str = "off") -> Models:
     """The stage's networks on the CPU, in eval mode, with torch's default
     initialisation (load parameters with :func:`load_params`).
@@ -91,9 +127,11 @@ def build_models(config: ExperimentConfig, depth_quant: str = "off") -> Models:
     finest stage: the reference's s2d rewrite is a training-speed lever,
     and its scales are defined on the standard conv shapes. The config's
     ``architecture`` picks the networks (``"monodepth2"``: its depth and
-    pose nets, float only)."""
+    pose nets, float only; ``"manydepth"``: :class:`ManyDepthModels`)."""
     if config.architecture == "monodepth2":
         return _monodepth2_models(config, depth_quant)
+    if config.architecture == "manydepth":
+        return _manydepth_models(config, depth_quant)
     if config.architecture != "depthvo_feat":
         raise ValueError(f"unknown architecture {config.architecture!r}")
     mc = config.model
@@ -153,8 +191,7 @@ def load_params(models: Models, params: Dict[str, Dict[str, torch.Tensor]],
                 device: torch.device) -> Models:
     """Load ``params`` strictly into the stage's networks and move them to
     ``device``. Every stage network must have parameters."""
-    for name in ("depth", "odom", "feat"):
-        net = getattr(models, name)
+    for name, net in zip(models._fields, models):
         if net is None:
             continue
         if name not in params:
@@ -276,7 +313,7 @@ def param_tree(models: Models) -> Dict[str, nn.Parameter]:
     the live parameter, in a fixed order."""
     return {
         f"{name}.{k}": p
-        for name, net in zip(Models._fields, models) if net is not None
+        for name, net in zip(models._fields, models) if net is not None
         for k, p in net.named_parameters()
     }
 
@@ -356,7 +393,7 @@ def state_dict(state: TrainState) -> Dict[str, Any]:
     return {
         "step": int(state.step),
         "nets": {name: {k: cpu(v) for k, v in net.state_dict().items()}
-                 for name, net in zip(Models._fields, state.models) if net is not None},
+                 for name, net in zip(state.models._fields, state.models) if net is not None},
         "param_keys": list(param_tree(state.models)),
         "opt_state": _map_tree(state.opt_state, cpu),
     }
@@ -378,7 +415,8 @@ def load_state_dict(state: TrainState, d: Dict[str, Any]) -> TrainState:
     and the solver state's structure must be the state's own. Every tensor
     keeps its storage (parameters, BatchNorm statistics, the solver's
     tensors), so a CUDA graph captured on ``state`` stays valid."""
-    nets = {name: net for name, net in zip(Models._fields, state.models) if net is not None}
+    nets = {name: net for name, net in zip(state.models._fields, state.models)
+            if net is not None}
     if sorted(d["nets"]) != sorted(nets):
         raise KeyError(f"checkpoint networks {sorted(d['nets'])}, the state's {sorted(nets)}")
     if list(d["param_keys"]) != list(param_tree(state.models)):

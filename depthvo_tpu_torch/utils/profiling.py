@@ -16,10 +16,10 @@ the reference's ``train_step_scan`` mode) or ``make_eval_step``
 (traced, so with the profiler's overhead), device kernel time per step
 and the busy share of the wall time, kernel launches per step (all
 kernels, and the warp kernels' own counters), the device time by
-category (the warp kernels, the reprojection error's, BatchNorm,
-convolutions, matrix products, copies, the rest), each warp kernel's
-device time, and the kernels that take the most device time, all per
-step. Every port kernel is named by its table (``ops.KERNELS``), so none
+category (the warp kernels, the reprojection error's, the cost volume,
+BatchNorm, convolutions, matrix products, copies, the rest), each warp
+kernel's device time, and the kernels that take the most device time,
+all per step. Every port kernel is named by its table (``ops.KERNELS``), so none
 falls under "other". Then, for one more step with the
 allocator's history on, its peak of allocated bytes and the bytes live
 at that peak by the line of this package that allocated them (with
@@ -53,7 +53,7 @@ import torch
 
 from depthvo_tpu_torch import configs, ops
 from depthvo_tpu_torch.data.synthetic import SyntheticScenes
-from depthvo_tpu_torch.ops import _build, reproj, warp_kernels
+from depthvo_tpu_torch.ops import _build, cost_volume, reproj, warp_kernels
 from depthvo_tpu_torch.train import loop
 from depthvo_tpu_torch.train.state import build_models, create_state, init_params, load_params
 from depthvo_tpu_torch.utils import spans
@@ -62,6 +62,7 @@ from depthvo_tpu_torch.utils.device import resolve_device
 _CATEGORIES = (
     ("warp_kernels", tuple(ops.symbols(warp_kernels.KERNELS))),
     ("reprojection", tuple(ops.symbols(reproj.KERNELS))),
+    ("cost_volume", tuple(ops.symbols(cost_volume.KERNELS))),
     ("memcpy", ("memcpy", "memset")),
     # Before the convolution keys, which would claim cuDNN's BatchNorm
     # kernels by their ``cudnn`` prefix. ``bn_`` takes cuDNN's (bn_fw_*,

@@ -30,7 +30,10 @@ The spans the port records, and what each covers:
   upload (``train.loop._GraphedSteps``);
 * ``graph.bind``: checking the graphs' binding to the state's storage;
 * ``graph.replay``: the call's batch copies and replays (or its eager
-  warm-up and capture), once a call.
+  warm-up and capture), once a call;
+* ``mf.loss``: ManyDepth's loss graph (``train.manydepth``), when eager;
+* ``mf.match``: inside it, the lookup frames' stem, the depth bins and the
+  cost volume (``models.manydepth.ResnetEncoderMatching``).
 
 Counters: ``ring.*``, the native ring's own counts
 (``data.native_loader.STATS_FIELDS``), added per batch by

@@ -229,7 +229,8 @@ _CUDA = "".join(p.read_text() for p in sorted(
 _GLOBALS = sorted(re.findall(
     r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", _CUDA))
 _CATEGORY = {"warp_kernels": "warp_kernels", "batch_norm": "batch_norm",
-             "md2_batch_norm": "batch_norm", "reproj": "reprojection"}
+             "md2_batch_norm": "batch_norm", "reproj": "reprojection",
+             "cost_volume": "cost_volume"}
 
 
 def test_every_global_function_of_the_cuda_sources_is_parsed():
